@@ -7,8 +7,10 @@ Phases, each failing loudly (any failed check raises, and the script then
 exits non-zero without its result line):
 
 1. device   — the card's name, and its name and power limit from nvidia-smi;
-2. build    — K1 (``stdd_torch/csrc/warp_affine.cu``) with nvcc for sm_90a,
-              and the native host helpers with g++;
+2. build    — K1 (``stdd_torch/csrc/warp_affine.cu``) and K2
+              (``stdd_torch/csrc/fused_bottleneck.cu``) with nvcc for sm_90a,
+              one nvcc each, started together, with their ptxas reports; and
+              the native host helpers with g++;
 3. K1       — the kernel against its plain PyTorch version on the card, in
               uint8 and float32, on the main path's shapes, an unaligned
               height, rotations up to ±45°, out-of-image taps, mixed
@@ -26,7 +28,25 @@ exits non-zero without its result line):
               (1080p, clip 32, stride 30, detect every 4, batch 2, I420,
               device-resident rings) on the scene oracle with one face:
               fps, window latency, K1 launches per dispatched batch, and one
-              identical clip through the ring and the host-packed paths.
+              identical clip through the ring and the host-packed paths;
+6. K2       — the fused s2 bottleneck against its plain PyTorch version in
+              bf16 and float32 at the serving shapes (block 0 with its
+              projection, block 1 identity; B = 1, 2 and score_dense's 8),
+              tk = 1, and a ragged T/H/W; times at B = 1, 2 and 8 with a
+              cold L2 beside the bound, the plain version and the port's
+              unfused cuDNN block;
+7. fused scorer — a checkpoint written by the port's ``save_checkpoint``
+              from the random-init scorer, served by ``from_jax_checkpoint``
+              with ``I3DConfig(fused_s2=True)`` at 32×224² in bf16 and
+              float32: K2 against its plain version through the whole
+              float32 scorer, fused against unfused, bf16 against float32,
+              and the I3D forward time fused beside unfused;
+8. dense    — ``score_dense`` as the offline demo drives it
+              (``stdd_tpu/eval/demo.py:188``): every stride-1 window of a
+              300-frame (10 s at 30 fps) I420 track, batch 8, through the
+              fused scorer: K2 and K1 launches per forward, dense against
+              host-packed windows, windows per second beside the unfused
+              scorer's on the same track.
 
 Every measurement is printed as one JSON object per line; then the
 ``{"kernels": [...]}`` line, the nvidia-smi line, and last
@@ -39,7 +59,9 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -51,18 +73,25 @@ import torch.nn.functional as F  # noqa: E402
 from stdd_torch.config import I3DConfig, PipelineConfig  # noqa: E402
 from stdd_torch.eval.scene import Scene  # noqa: E402
 from stdd_torch.native import available as native_available  # noqa: E402
+from stdd_torch.models.i3d import ResBlock  # noqa: E402
+from stdd_torch.ops import bottleneck as k2  # noqa: E402
 from stdd_torch.ops.align import STD_POINTS_256  # noqa: E402
+from stdd_torch.ops.bottleneck import fused_bottleneck, fused_bottleneck_reference  # noqa: E402
 from stdd_torch.ops.warp import build_kernel, warp_affine, warp_affine_reference  # noqa: E402
-from stdd_torch.runtime.classifier import ClipScorer  # noqa: E402
+from stdd_torch.runtime.classifier import ClipScorer, yuv420_to_rgb  # noqa: E402
 from stdd_torch.runtime.engine import AsyncDetector, StreamingEngine, _FrameEntry  # noqa: E402
-from stdd_torch.runtime.packing import pack_clip_batch  # noqa: E402
+from stdd_torch.runtime.packing import pack_clip_batch, pack_track  # noqa: E402
 from stdd_torch.runtime.ring import DeviceRing, RingKernels  # noqa: E402
+from stdd_torch.utils.checkpoint import save_checkpoint  # noqa: E402
 from stdd_torch.utils.cuda_build import build_info  # noqa: E402
+from stdd_torch.utils.weights import i3d_torch_to_flax  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the float32 rate
-# outside the tensor cores; the L2 size, for timing with a cold L2
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the float32 rate
+# outside the tensor cores and the dense bf16 tensor-core rate; the L2 size,
+# for timing with a cold L2
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 L2_BYTES = 50 * 2 ** 20
 # ~flops per output pixel of K1: 2 coordinates (4 mul, 4 add), 2 floors and
 # weights (6), 3 channels × (8 mul + 3 add)
@@ -88,6 +117,29 @@ SPREAD_MIN = 3e-3
 # same pixels and geometry reach the bf16 scorer in both (per-frame scale
 # folded into the warp vs geometry scaled per clip), so only rounding differs
 WINDOW_TOL = 1e-4
+# K2 against its plain version on the same operands (float32 sums in
+# another order): float32 within 1e-5 of max(1, max |ref|) (measured 6e-7 on
+# an H100); bf16 within two bf16 ulps of max |ref| — a float32 sum that lands
+# on the other side of a rounding boundary moves xa, xb or y by one ulp —
+# and on at most 1% of the elements (measured 0.09% at most)
+K2_TOL_F32_REL = 1e-5
+K2_TOL_BF16_ULPS = 2
+K2_TOL_BF16_FRAC = 0.01
+# the fused-s2 scorer's bounds. K2 against its plain version through the
+# float32 scorer: they differ only in the order of float32 sums. Fused
+# against unfused float32: the fold moves each weight by a float32 rounding.
+# bf16 against float32: the unfused scorer's bounds (TOLS).
+FUSED_TOLS = {
+    "kernel_vs_plain_k2_f32_dp": 1e-5,
+    "kernel_vs_plain_k2_feature_rel": 1e-4,
+    "fused_vs_unfused_f32_dp": 1e-4,
+    "bf16_vs_f32_dp": TOLS["bf16_vs_f32_dp"],
+    "bf16_vs_f32_feature_rel": TOLS["bf16_vs_f32_feature_rel"],
+    "bf16_vs_f32_logit_gap_rel": TOLS["bf16_vs_f32_logit_gap_rel"],
+}
+# |Δp| of the dense windows against the same windows packed on the host:
+# the same bytes reach the same scorer in the same batches
+DENSE_TOL = 1e-4
 SEED = 0
 
 
@@ -160,6 +212,8 @@ def k1_cases(rng, S=224):
     """(name, N, H, W, params [N,8]) — the geometries K1 must serve."""
     cases = [("main_B1", 32, 256, 256, similarity_params(rng, 32, 256, 256, S, 10)),
              ("main_B2", 64, 256, 256, similarity_params(rng, 64, 256, 256, S, 10)),
+             # score_dense's batch of 8 clips
+             ("dense_B8", 256, 256, 256, similarity_params(rng, 256, 256, 256, S, 10)),
              ("unaligned_H250", 8, 250, 256, similarity_params(rng, 8, 250, 256, S, 10)),
              ("rot45", 16, 256, 256, similarity_params(rng, 16, 256, 256, S, 45)),
              ("out_of_image", 8, 256, 256,
@@ -296,8 +350,6 @@ def scorer_numbers(scorer, scorer32, ws, boxes, lm5, scale, valid) -> dict:
     against the plain warp through the float32 scorer, and (for two or more
     clips) the same comparisons on the logits and pooled features, each
     relative to how far the first two clips lie apart in float32."""
-    from stdd_torch.runtime.classifier import yuv420_to_rgb
-
     dev = scorer.device
     p16 = np.asarray(scorer.score_windows(ws, boxes, lm5, scale, valid))
     p32 = np.asarray(scorer32.score_windows(ws, boxes, lm5, scale, valid))
@@ -378,7 +430,6 @@ def stage_times(scorer, crops, boxes, lm5, scale) -> dict:
     call on device-resident windows, and of the whole call."""
     from stdd_torch.ops.align import clip_geometry as fit_geometry, similarity_cv2
     from stdd_torch.ops.warp import pack_warp_params
-    from stdd_torch.runtime.classifier import yuv420_to_rgb
 
     B, T = crops.shape[:2]
     S = scorer.cfg.crop_size
@@ -483,6 +534,257 @@ def phase_engine(scorer, smi):
     return launches, pipe.clip_size * round(len(scored) / batches)
 
 
+# -- phase 6: K2 --------------------------------------------------------------
+
+def k2_operands(rng, B, T, H, W, cin, co, tk, project, dev, dtype):
+    """x [B, Cin, T, H, W] (channels_last_3d, ``dtype``) and the BN-folded
+    float32 operands of one bottleneck, fan-in scaled so the activations
+    keep the magnitude of a trained block's."""
+    ci = k2.KERNEL_CI
+
+    def w(*shape):
+        fan = int(np.prod(shape[:-1]))
+        return torch.from_numpy((rng.randn(*shape) / np.sqrt(fan)).astype(np.float32)).to(dev)
+
+    def b(n):
+        return torch.from_numpy((rng.randn(n) * 0.1).astype(np.float32)).to(dev)
+
+    x = torch.from_numpy(rng.randn(B, T, H, W, cin).astype(np.float32)).to(dev)
+    ops = [w(tk, cin, ci), b(ci), w(3, 3, ci, ci), b(ci), w(ci, co), b(co)]
+    ops += [w(cin, co), b(co)] if project else [None, None]
+    return x.permute(0, 4, 1, 2, 3).to(dtype), ops
+
+
+# (name, B, T, H, W, Cin, Co, tk, projection): the serving shapes of s2's
+# blocks (block 0: 64 → 256 with its projection; blocks 1-2: 256 → 256) at
+# the engine's batches and score_dense's 8, tk = 1, and a T/H/W the 14 × 14
+# tiles do not divide
+K2_CASES = [("block0_B1", 1, 32, 56, 56, 64, 256, 3, True),
+            ("block0_B2", 2, 32, 56, 56, 64, 256, 3, True),
+            ("block0_B8", 8, 32, 56, 56, 64, 256, 3, True),
+            ("block1_B1", 1, 32, 56, 56, 256, 256, 3, False),
+            ("block1_B2", 2, 32, 56, 56, 256, 256, 3, False),
+            ("block1_B8", 8, 32, 56, 56, 256, 256, 3, False),
+            ("tk1_projection", 1, 8, 20, 17, 64, 128, 1, True),
+            ("ragged", 2, 5, 15, 30, 256, 256, 3, False)]
+
+
+@torch.inference_mode()
+def phase_k2_check(dev) -> float:
+    rng = np.random.RandomState(SEED + 2)
+    max_err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, B, T, H, W, cin, co, tk, project in K2_CASES:
+            x, ops = k2_operands(rng, B, T, H, W, cin, co, tk, project, dev, dtype)
+            got = fused_bottleneck(x, *ops, tk=tk)
+            want = fused_bottleneck_reference(x, *ops, tk=tk)
+            torch.cuda.synchronize()
+            ok_layout = got.is_contiguous(memory_format=torch.channels_last_3d)
+            err = float((got.float() - want.float()).abs().max())
+            ref_max = float(want.float().abs().max())
+            rec = {"phase": "k2_check", "case": name, "dtype": str(dtype).replace("torch.", ""),
+                   "B": B, "T": T, "H": H, "W": W, "Cin": cin, "Co": co, "tk": tk,
+                   "projection": project, "max_abs_err": err, "max_abs_ref": ref_max}
+            if dtype == torch.float32:
+                tol = K2_TOL_F32_REL * max(1.0, ref_max)
+            else:
+                tol = K2_TOL_BF16_ULPS * 2.0 ** (np.floor(np.log2(ref_max)) - 7)
+                rec["frac_differing"] = float((got != want).float().mean())
+                rec["frac_tol"] = K2_TOL_BF16_FRAC
+            rec["tol"] = tol
+            emit(rec)
+            if not (torch.isfinite(got).all() and ok_layout):
+                raise AssertionError(f"K2 {name}/{dtype}: non-finite output or not channels_last_3d")
+            if err > tol or rec.get("frac_differing", 0.0) > K2_TOL_BF16_FRAC:
+                raise AssertionError(f"K2 {name}/{dtype}: max |Δ| {err} (tol {tol}), "
+                                     f"{rec.get('frac_differing')} of elements differ")
+            max_err = max(max_err, err)
+    return max_err
+
+
+def k2_work(B, T, H, W, cin, co, tk, project, itemsize=2):
+    """Bytes K2 must move (x read once, y written once, weights and biases)
+    and the flops of its products, for one call."""
+    P = B * T * H * W
+    ci = k2.KERNEL_CI
+    macs = tk * cin * ci + 9 * ci * ci + ci * co + (cin * co if project else 0)
+    weights = macs * itemsize + (2 * ci + co + (co if project else 0)) * 4
+    return P * (cin + co) * itemsize + weights, 2 * P * macs
+
+
+@torch.inference_mode()
+def phase_k2_time(dev) -> dict:
+    """Cold-L2 times (``cold_ms``) of K2, its plain version and the port's
+    unfused cuDNN ResBlock on the same bf16 input, at the serving shapes and
+    B = 1, 2 and 8 (``score_dense``'s batch). No single PyTorch call
+    computes a whole bottleneck, so there is no library time."""
+    rng = np.random.RandomState(SEED + 3)
+    T, H, W, co = 32, 56, 56, 256
+    timings = {}
+    for B in (1, 2, 8):
+        for name, cin, project in (("block0", 64, True), ("block1", 256, False)):
+            nbytes, flops = k2_work(B, T, H, W, cin, co, 3, project)
+            per_set = B * T * H * W * (cin + co) * 2
+            n_sets = -(-4 * L2_BYTES // per_set) + 1
+            sets = []
+            for _ in range(n_sets):
+                x, ops = k2_operands(rng, B, T, H, W, cin, co, 3, project, dev, torch.bfloat16)
+                # the model hands K2 weights already cast (ResBlock.folded_weights)
+                sets.append((x,) + tuple(o.bfloat16() if o is not None and o.dim() > 1 else o
+                                         for o in ops))
+            reps = 4 * n_sets
+            block = ResBlock(cin, co, k2.KERNEL_CI, 3, 1, False, 1e-5).to(dev).eval()
+            randomize_bn(block, SEED)
+            ms = cold_ms(lambda x, *o: fused_bottleneck(x, *o, tk=3), sets, reps)
+            plain_ms = cold_ms(lambda x, *o: fused_bottleneck_reference(x, *o, tk=3), sets, reps)
+            unfused_ms = cold_ms(lambda x, *o: block(x), sets, reps)
+            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+            timings[(B, name)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                                      bound_by="bytes" if t_bytes >= t_ops else "operations",
+                                      bytes_ms=t_bytes, ops_ms=t_ops, library_ms=None,
+                                      unfused_ms=unfused_ms)
+            emit({"phase": "k2_time", "block": name, "B": B, "T": T, "H": H, "W": W, "Cin": cin,
+                  "Co": co, "tk": 3, "projection": project, "dtype": "bfloat16", "bytes": nbytes,
+                  "flops": flops, **timings[(B, name)], "l2": "cold", "input_sets": n_sets,
+                  "library": None, "library_note": "no single PyTorch call computes a whole "
+                  "bottleneck", "unfused": "the port's ResBlock (cuDNN F.conv3d)"})
+            del sets, block
+    return timings
+
+
+# -- phase 7: the fused-s2 scorer from a checkpoint ----------------------------
+
+def phase_fused_scorer(dev, scorer, ckpt_dir: str):
+    """Serve the checkpoint of ``scorer``'s weights (random init with random
+    BN, written by the port's ``save_checkpoint``) with ``fused_s2``; →
+    the bf16 fused scorer."""
+    path = save_checkpoint(ckpt_dir, "i3d", 1, i3d_torch_to_flax(scorer.model.state_dict()),
+                           metadata={"crop_size": 224, "clip_size": 32, "temporal_only": False,
+                                     "epoch": 1})
+    kw = dict(upload_format="yuv420", device=dev)
+    fused = I3DConfig(fused_s2=True)
+    f16 = ClipScorer.from_jax_checkpoint(path, cfg=fused, **kw)
+    f32 = ClipScorer.from_jax_checkpoint(path, cfg=fused, dtype=torch.float32, **kw)
+    u32 = ClipScorer.from_jax_checkpoint(path, dtype=torch.float32, **kw)   # sidecar cfg: unfused
+    if f16.cfg.fused_s2 is not True or u32.cfg.fused_s2 or u32.cfg.crop_size != 224:
+        raise AssertionError("from_jax_checkpoint did not take the asked or the sidecar geometry")
+    rng = np.random.RandomState(SEED + 5)
+    T, S = 32, 256
+    for B in (1, 2):
+        ws = [torch.from_numpy(w).to(dev) for w in clip_windows(rng, B, T, S)]
+        geo = [clip_geometry(rng, T) for _ in range(B)]
+        boxes, lm5, scale = (torch.from_numpy(np.stack([g[i] for g in geo])).to(dev)
+                             for i in range(3))
+        crops = torch.stack(ws)
+        valid = torch.ones(B, dtype=torch.bool, device=dev)
+        out = {}
+        with torch.inference_mode():
+            for key, sc, bott in (("k32", f32, fused_bottleneck),
+                                  ("p32", f32, fused_bottleneck_reference),
+                                  ("u32", u32, fused_bottleneck),
+                                  ("k16", f16, fused_bottleneck)):
+                p, logits, feats = sc._score_impl(crops, boxes, lm5, valid, scale=scale,
+                                                  bottleneck=bott, with_features=True)
+                out[key] = (p.double().cpu(), logits[:, 0].double().cpu(), feats.double().cpu())
+        p32, l32, f32_ = out["k32"]
+        r = {"phase": "fused_scorer", "B": B, "probs_bf16": out["k16"][0].tolist(),
+             "probs_f32": p32.tolist(), "probs_unfused_f32": out["u32"][0].tolist(),
+             "kernel_vs_plain_k2_f32_dp": float((out["p32"][0] - p32).abs().max()),
+             "fused_vs_unfused_f32_dp": float((out["u32"][0] - p32).abs().max()),
+             "bf16_vs_f32_dp": float((out["k16"][0] - p32).abs().max())}
+        if B >= 2:
+            apart = float((f32_[0] - f32_[1]).norm())
+            d32 = float(l32[0] - l32[1])
+            d16 = float(out["k16"][1][0] - out["k16"][1][1])
+            r.update({"f32_prob_spread": float(abs(p32[0] - p32[1])),
+                      "f32_feature_distance": apart,
+                      "kernel_vs_plain_k2_feature_rel":
+                          float((out["p32"][2] - f32_).norm(dim=1).max()) / apart,
+                      "bf16_vs_f32_feature_rel": float((out["k16"][2] - f32_).norm(dim=1).max())
+                          / apart,
+                      "bf16_vs_f32_logit_gap_rel": abs(d16 - d32) / abs(d32)})
+        with torch.inference_mode():
+            x = (f16._align_batch(yuv420_to_rgb(crops), boxes, lm5, scale) - f16._mean) / f16._std
+            r["i3d_forward_ms_fused"] = event_ms(lambda: f16.model(x), 20)
+            r["i3d_forward_ms_unfused"] = event_ms(lambda: scorer.model(x), 20)
+        r["dtype_forward"] = "bfloat16"
+        r["tol"] = FUSED_TOLS
+        emit(r)
+        p16 = np.array(r["probs_bf16"])
+        if not (np.isfinite(p16).all() and ((p16 > 0) & (p16 < 1)).all()):
+            raise AssertionError(f"fused scorer B={B}: probs {p16} not finite in (0, 1)")
+        for key, tol in FUSED_TOLS.items():
+            if key in r and not r[key] <= tol:
+                raise AssertionError(f"fused scorer B={B}: {key} {r[key]} > {tol}")
+        if "f32_prob_spread" in r and not r["f32_prob_spread"] >= SPREAD_MIN:
+            raise AssertionError(f"fused scorer B={B}: clips of different content give probs "
+                                 f"only {r['f32_prob_spread']} apart (< {SPREAD_MIN})")
+    del f32, u32
+    return f16
+
+
+# -- phase 8: dense windows of one track through the fused scorer --------------
+
+def phase_dense(fused16, unfused16, smi) -> int:
+    """Every stride-1 window of one 300-frame track at batch 8, as the
+    offline demo scores a whole track (``stdd_tpu/eval/demo.py:121,188``)."""
+    T, S, N, batch = 32, 256, 300, 8
+    rng = np.random.RandomState(SEED + 6)
+    entries = []
+    for i in range(N):
+        crop = rng.randint(0, 255, (300, 280, 3), np.uint8)      # one pack scale < 1
+        box = np.array([40.0 + i, 30.0, 320.0 + i, 330.0], np.float32)
+        lm5 = (STD_POINTS_256 * (200.0 / 256.0) + np.array([40.0, 60.0]) + 0.05 * i
+               + rng.uniform(-1, 1, (5, 2))).astype(np.float32)
+        entries.append(_FrameEntry(crop, box, lm5))
+    frames, boxes, lm5 = pack_track(entries, S, yuv420=True)
+    starts = np.arange(N - T + 1)
+    forwards = -(-len(starts) // batch)
+    for sc in (fused16, unfused16):                            # warm-up at this batch
+        sc.score_dense(frames, boxes, lm5, starts[:batch], batch=batch)
+    torch.cuda.synchronize()
+    fused_bottleneck.launches = warp_affine.launches = 0      # the K2 path's run starts here
+    t0 = time.perf_counter()
+    probs = fused16.score_dense(frames, boxes, lm5, starts, batch=batch)
+    dt = time.perf_counter() - t0
+    k2_launches, k1_launches = fused_bottleneck.launches, warp_affine.launches   # ... ends here
+    t0 = time.perf_counter()
+    probs_unfused = unfused16.score_dense(frames, boxes, lm5, starts, batch=batch)
+    dt_unfused = time.perf_counter() - t0
+    # the same windows gathered on the host and uploaded batch by batch
+    packed = []
+    for i in range(0, len(starts), batch):
+        chunk = starts[i:i + batch]
+        padded = np.zeros((batch,), np.int64)
+        padded[:len(chunk)] = chunk
+        idx = padded[:, None] + np.arange(T)
+        valid = np.arange(batch) < len(chunk)
+        packed.append(fused16.score(frames[idx], boxes[idx], lm5[idx], valid)[:len(chunk)])
+    delta = float(np.abs(probs - np.concatenate(packed)).max())
+    emit({"phase": "dense", "card": smi, "track_frames": N, "clip": T, "stride": 1,
+          "windows": len(starts), "batch": batch, "forwards": forwards,
+          "k2_launches": k2_launches, "k1_launches": k1_launches, "seconds": dt,
+          "windows_per_s": len(starts) / dt, "seconds_unfused": dt_unfused,
+          "windows_per_s_unfused": len(starts) / dt_unfused,
+          "probs_min_max": [float(probs.min()), float(probs.max())],
+          "fused_vs_unfused_bf16_dp": float(np.abs(probs - probs_unfused).max()),
+          "dense_vs_packed_dp": delta, "tol": DENSE_TOL})
+    if not (np.isfinite(probs).all() and ((probs > 0) & (probs < 1)).all()):
+        raise AssertionError(f"dense probs not finite in (0, 1): {probs}")
+    if k2_launches != 3 * forwards or k1_launches != forwards:
+        raise AssertionError(f"dense: K2 launches {k2_launches} (want {3 * forwards}), "
+                             f"K1 launches {k1_launches} (want {forwards})")
+    if not delta <= DENSE_TOL:
+        raise AssertionError(f"dense vs host-packed |Δp| {delta} > {DENSE_TOL}")
+    return k2_launches
+
+
+def timed(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card")
@@ -497,28 +799,51 @@ def main() -> None:
     emit({"phase": "device", "name": name, "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
+    # one nvcc for each kernel source, started together
     t0 = time.perf_counter()
-    build_kernel()
-    t_k1 = time.perf_counter() - t0
+    with ThreadPoolExecutor(2) as pool:
+        futs = {"warp_affine": pool.submit(timed, build_kernel),
+                "fused_bottleneck": pool.submit(timed, k2.build_kernel)}
+        build_s = {k: f.result() for k, f in futs.items()}
+    t_kernels = time.perf_counter() - t0
     t0 = time.perf_counter()
     native = native_available()
-    info = build_info["warp_affine"]
-    emit({"phase": "build", "warp_affine_s": t_k1, "native_s": time.perf_counter() - t0,
-          "native": native, "warp_affine_library": info["library"],
-          "warp_affine_reused": info["reused"], "ptxas": info["ptxas"].strip().splitlines()})
+    rec = {"phase": "build", "kernels_wall_s": t_kernels, "native_s": time.perf_counter() - t0,
+           "native": native}
+    for k in ("warp_affine", "fused_bottleneck"):
+        info = build_info[k]
+        rec.update({f"{k}_s": build_s[k], f"{k}_library": info["library"],
+                    f"{k}_reused": info["reused"],
+                    f"{k}_ptxas": info["ptxas"].strip().splitlines()})
+    emit(rec)
 
-    max_err, timings = phase_k1(dev)
+    k1_err, k1_timings = phase_k1(dev)
+    k2_err = phase_k2_check(dev)
+    k2_timings = phase_k2_time(dev)
     scorer = phase_scorer(dev)
-    launches, n_main = phase_engine(scorer, smi)
+    k1_launches, n_main = phase_engine(scorer, smi)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        fused16 = phase_fused_scorer(dev, scorer, ckpt_dir)
+    k2_launches = phase_dense(fused16, scorer, smi)
 
-    # the kernel's numbers at the N the main path launched it with
-    t_main = timings[n_main]
-    emit({"kernels": [{
-        "name": "warp_affine", "route": "cuda", "source": "stdd_torch/csrc/warp_affine.cu",
-        "replaces": "stdd_tpu/ops/warp_pallas.py:94", "launches": launches,
-        "max_abs_err": max_err, "ms": t_main["ms"], "plain_ms": t_main["plain_ms"],
-        "bound_ms": t_main["bound_ms"], "bound_by": t_main["bound_by"],
-        "library_ms": t_main["library_ms"]}]})
+    # each kernel's numbers at the shape its path launched it with: K1 at
+    # the engine's N; K2 at score_dense's batch of 8 clips, per launch over
+    # one forward's three launches (block 0, then blocks 1 and 2)
+    t1 = k1_timings[n_main]
+    b0, b1 = k2_timings[(8, "block0")], k2_timings[(8, "block1")]
+    per_launch = {k: (b0[k] + 2 * b1[k]) / 3 for k in ("ms", "plain_ms", "bytes_ms", "ops_ms")}
+    k2_bound_by = "bytes" if per_launch["bytes_ms"] >= per_launch["ops_ms"] else "operations"
+    emit({"kernels": [
+        {"name": "warp_affine", "route": "cuda", "source": "stdd_torch/csrc/warp_affine.cu",
+         "replaces": "stdd_tpu/ops/warp_pallas.py:94", "launches": k1_launches,
+         "max_abs_err": k1_err, "ms": t1["ms"], "plain_ms": t1["plain_ms"],
+         "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"], "library_ms": t1["library_ms"]},
+        {"name": "fused_bottleneck", "route": "cuda",
+         "source": "stdd_torch/csrc/fused_bottleneck.cu",
+         "replaces": "stdd_tpu/ops/bottleneck_pallas.py:148", "launches": k2_launches,
+         "max_abs_err": k2_err, "ms": per_launch["ms"], "plain_ms": per_launch["plain_ms"],
+         "bound_ms": max(per_launch["bytes_ms"], per_launch["ops_ms"]), "bound_by": k2_bound_by,
+         "library_ms": None}]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

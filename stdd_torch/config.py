@@ -4,8 +4,9 @@ Own copies of ``stdd_tpu.config.I3DConfig`` and ``PipelineConfig`` (same
 fields, same defaults), so a configuration moves between the two packages
 field for field. The port's I3D computes the plain convolutions whatever
 ``s2d_stem``/``stem_t2`` say (both are exact TPU re-layouts of the same
-math); ``temporal_only``, ``fused_s2`` and ``int8_stages`` are not ported
-yet and are refused by :class:`stdd_torch.models.i3d.I3D`.
+math); ``fused_s2`` runs s2 through K2 (``ops/bottleneck.py``);
+``temporal_only`` and ``int8_stages`` are not ported yet and are refused by
+:class:`stdd_torch.models.i3d.I3D`.
 """
 
 from __future__ import annotations

@@ -17,6 +17,10 @@ bottleneck ``resnet_helper.py:196``; head ``head_helper.py:9``).
 - ``s2d_stem``/``stem_t2`` are exact TPU re-layouts of the stem
   convolution (``stdd_tpu/models/i3d.py:61-78,244-307``); the port computes
   the plain convolution and matches the JAX model with those flags on.
+- ``fused_s2`` runs each stride-1 block of s2 as one K2 launch
+  (``ops/bottleneck.py``) over BN-folded weights, as the JAX model's
+  ``ResBlock._fused`` does; the parameters stay where the unfused block
+  keeps them, so one checkpoint serves both.
 
 Module names follow the flax parameter tree (``s1.pathway0_stem.conv`` …,
 ``head.projection``) so the weight bridge (``utils/weights.py``) is a pure
@@ -34,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import I3DConfig
+from ..ops.bottleneck import fold_bn, fused_bottleneck
 
 # Stage depths for ResNet-{18,50,101} (video_model_builder.py:18)
 STAGE_DEPTH = {18: (2, 2, 2, 2), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
@@ -124,11 +129,12 @@ class Bottleneck(nn.Module):
 
 class ResBlock(nn.Module):
     """Residual block with a projection shortcut when dims or stride change
-    (reference resnet_helper.py:329)."""
+    (reference resnet_helper.py:329). With ``fused_eval`` and stride 1 the
+    whole block is one K2 launch (``stdd_tpu/models/i3d.py:439-443,475``)."""
 
     def __init__(self, dim_in: int, dim_out: int, dim_inner: int,
                  temp_kernel_size: int, stride: int, zero_init_final_bn: bool,
-                 bn_eps: float):
+                 bn_eps: float, fused_eval: bool = False):
         super().__init__()
         self.branch2 = Bottleneck(dim_in, dim_out, dim_inner, temp_kernel_size,
                                   stride, zero_init_final_bn, bn_eps)
@@ -137,8 +143,45 @@ class ResBlock(nn.Module):
                      bn_eps=bn_eps)
             if dim_in != dim_out or stride != 1 else None
         )
+        self.tk = temp_kernel_size
+        self.fused_eval = fused_eval and stride == 1
+        self._fold_key = None
+        self._fold = None
 
-    def forward(self, x):
+    def folded_weights(self, dtype: torch.dtype):
+        """K2's operands (wa, ba, wb, bb, wc, bc, ws, bs): BN folded into
+        each convolution in float32, kernels in the JAX layout cast to
+        ``dtype``. Computed once per weight load, not in every forward: the
+        key is every source tensor's address and version counter, which any
+        in-place write (``load_state_dict`` included) bumps."""
+        br = self.branch2
+        # each convolution and the leading (kernel) axes of its K2 layout
+        convs = [(br.a, (self.tk,)), (br.b, (3, 3)), (br.c, ())]
+        if self.shortcut is not None:
+            convs.append((self.shortcut, ()))
+        srcs = [t for m, _ in convs for t in (m.conv.weight, m.bn.weight, m.bn.bias,
+                                              m.bn.running_mean, m.bn.running_var)]
+        key = (dtype, srcs[0].device) + tuple((t.data_ptr(), t._version) for t in srcs)
+        if key != self._fold_key:
+            out = []
+            with torch.no_grad():
+                for m, lead in convs:
+                    w = m.conv.weight                      # [Cout, Cin, kt, kh, kw]
+                    w = w.permute(2, 3, 4, 1, 0).reshape(lead + (w.shape[1], w.shape[0]))
+                    bn = m.bn
+                    wf, bf = fold_bn(w, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                                     bn.eps)
+                    out += [wf.to(dtype), bf]
+            if self.shortcut is None:
+                out += [None, None]
+            self._fold, self._fold_key = tuple(out), key
+        return self._fold
+
+    def forward(self, x, bottleneck=fused_bottleneck):
+        """``bottleneck``: the K2 entry point a fused block calls (its plain
+        version can stand in to hold the kernel to it)."""
+        if self.fused_eval:
+            return bottleneck(x, *self.folded_weights(x.dtype), tk=self.tk)
         sc = self.shortcut(x) if self.shortcut is not None else x
         return F.relu(sc + self.branch2(x))
 
@@ -156,18 +199,18 @@ class ResStage(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, dim_inner: int,
                  temp_kernel_basis: Sequence[int], num_blocks: int,
                  num_block_temp_kernel: int, stride: int,
-                 zero_init_final_bn: bool, bn_eps: float):
+                 zero_init_final_bn: bool, bn_eps: float, fused_eval: bool = False):
         super().__init__()
         tks = stage_temp_kernels(temp_kernel_basis, num_blocks, num_block_temp_kernel)
         self.num_blocks = num_blocks
         for i in range(num_blocks):
             self.add_module(f"pathway0_res{i}", ResBlock(
                 dim_in if i == 0 else dim_out, dim_out, dim_inner, tks[i],
-                stride if i == 0 else 1, zero_init_final_bn, bn_eps))
+                stride if i == 0 else 1, zero_init_final_bn, bn_eps, fused_eval))
 
-    def forward(self, x):
+    def forward(self, x, bottleneck=fused_bottleneck):
         for i in range(self.num_blocks):
-            x = getattr(self, f"pathway0_res{i}")(x)
+            x = getattr(self, f"pathway0_res{i}")(x, bottleneck)
         return x
 
 
@@ -200,11 +243,10 @@ class I3D(nn.Module):
     def __init__(self, cfg: Optional[I3DConfig] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = cfg or I3DConfig()
-        if c.temporal_only or c.fused_s2 or c.int8_stages:
+        if c.temporal_only or c.int8_stages:
             raise NotImplementedError(
-                "temporal_only, fused_s2 and int8_stages are not ported yet "
-                f"(got temporal_only={c.temporal_only}, fused_s2={c.fused_s2}, "
-                f"int8_stages={c.int8_stages})")
+                "temporal_only and int8_stages are not ported yet "
+                f"(got temporal_only={c.temporal_only}, int8_stages={c.int8_stages})")
         self.cfg = c
         self.compute_dtype = dtype
         d2, d3, d4, d5 = STAGE_DEPTH[c.depth]
@@ -219,8 +261,10 @@ class I3D(nn.Module):
             ("s5", w * 16, w * 32, inner * 8, c.temp_kernel[4], d5, c.num_block_temp_kernel[3], c.spatial_strides[3]),
         ]
         for name, di, do, dinner, basis, blocks, ntemp, stride in stages:
+            # fused_s2: the eval-only K2 blocks of s2 (stdd_tpu/models/i3d.py:647)
             self.add_module(name, ResStage(di, do, dinner, basis, blocks, ntemp,
-                                           stride, c.zero_init_final_bn, c.bn_eps))
+                                           stride, c.zero_init_final_bn, c.bn_eps,
+                                           fused_eval=name == "s2" and c.fused_s2))
         self.head = I3DHead(w * 32, c.num_classes, c.fc_init_std)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -230,12 +274,15 @@ class I3D(nn.Module):
             if isinstance(m, (Conv3dBN, I3DHead)):
                 m.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, return_features: bool = False):
+    def forward(self, x: torch.Tensor, return_features: bool = False,
+                bottleneck=fused_bottleneck):
+        """``bottleneck``: what the ``fused_s2`` blocks call, K2 by default
+        (``ResBlock.forward``)."""
         c = self.cfg
         x = x.to(self.compute_dtype).permute(0, 4, 1, 2, 3)          # NTHWC → NCTHW view
         x = x.contiguous(memory_format=torch.channels_last_3d)
         x = self.s1(x)
-        x = self.s2(x)
+        x = self.s2(x, bottleneck)
         if c.t_pool_after_s2 > 1:
             # pathway0_pool: MaxPool3d [2,1,1] (video_model_builder.py:477)
             tp = c.t_pool_after_s2

@@ -6,13 +6,15 @@ chain per batch capacity; here it runs eagerly in one CUDA stream. Every
 clip takes the K1 kernel (``ops/warp.py``): it is exact for any affine, so
 the JAX rotation envelope, its in-graph ``lax.cond`` and the host-side
 drift router have no counterpart, and ``path`` arguments are accepted and
-ignored. ``score_dense``, ``score_with_features`` and the JAX scorer's
-``round_aligned_u8`` and ``score_index`` options (no caller sets them) are
-not ported yet; the score is the sigmoid of the first logit.
+ignored. With ``I3DConfig(fused_s2=True)`` the s2 blocks run K2
+(``ops/bottleneck.py``). The JAX scorer's ``round_aligned_u8`` and
+``score_index`` options (no caller sets them) are not ported; the score is
+the sigmoid of the first logit.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Optional
 
 import numpy as np
@@ -21,8 +23,10 @@ import torch
 from ..config import I3DConfig
 from ..models.i3d import I3D, IMAGENET_MEAN, IMAGENET_STD
 from ..ops.align import clip_geometry, similarity_cv2, std_points
+from ..ops.bottleneck import fused_bottleneck
 from ..ops.warp import pack_warp_params, warp_affine
-from ..utils.weights import i3d_flax_to_torch
+from ..utils.checkpoint import load_checkpoint, tolerant_merge
+from ..utils.weights import i3d_flax_to_torch, i3d_torch_to_flax
 
 
 def yuv420_to_rgb(planar: torch.Tensor) -> torch.Tensor:
@@ -122,6 +126,41 @@ class ClipScorer:
         ``stdd_tpu``'s ``ClipScorer.variables`` fetched to numpy)."""
         return cls(i3d_flax_to_torch(variables), cfg=cfg, **kw)
 
+    @classmethod
+    def from_jax_checkpoint(cls, path: str, cfg: Optional[I3DConfig] = None, **kw):
+        """Serve weights the JAX trainer wrote (``{name}_{epoch}.msgpack``
+        from ``save_checkpoint``, of either package): ``params`` and
+        ``batch_stats`` go through the tolerant merge, so a trailing
+        ``opt_state`` or any leaf the model lacks is ignored, and a
+        checkpoint that does not cover the model (missing leaves or other
+        shapes) raises. Without ``cfg`` the geometry comes from the
+        trainer's ``{path}.json`` sidecar (clip_size, crop_size,
+        temporal_only) when there is one, so a non-224 checkpoint is never
+        served at 224. ``stdd_tpu/runtime/classifier.py:264``."""
+        if cfg is None:
+            cfg = I3DConfig()
+            try:
+                with open(path + ".json") as f:
+                    meta = json.load(f)
+                cfg = I3DConfig(num_frames=int(meta.get("clip_size", cfg.num_frames)),
+                                crop_size=int(meta.get("crop_size", cfg.crop_size)),
+                                temporal_only=bool(meta.get("temporal_only", False)))
+            except FileNotFoundError:
+                pass
+        with torch.device("meta"):
+            model = I3D(cfg)                       # refuses what the port lacks
+        # the merge reads the target's shapes only: zero-stride views, no data
+        target = i3d_torch_to_flax({k: torch.zeros(()).expand(v.shape)
+                                    for k, v in model.state_dict().items()})
+        raw = load_checkpoint(path)
+        src = {k: raw[k] for k in ("params", "batch_stats") if k in raw}
+        merged, report = tolerant_merge(target, src)
+        if report["missing"] or report["shape_mismatch"]:
+            raise ValueError(
+                f"{path} does not cover the model (cfg={cfg}): "
+                f"missing={report['missing'][:5]} shape_mismatch={report['shape_mismatch'][:5]}")
+        return cls(i3d_flax_to_torch(merged), cfg=cfg, **kw)
+
     # -- device plumbing ------------------------------------------------------
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
@@ -157,9 +196,12 @@ class ClipScorer:
                     params.reshape(B * T, 8).contiguous(), S)
         return flat.reshape(B, T, S, S, 3)
 
-    def _score_impl(self, crops, boxes, lm5, valid, scale=None, warp=warp_affine):
-        """Device tensors in, device probs out (``warp`` swaps K1 for its
-        plain version when checking the kernel on the card)."""
+    def _score_impl(self, crops, boxes, lm5, valid, scale=None, warp=warp_affine,
+                    bottleneck=fused_bottleneck, with_features: bool = False):
+        """Device tensors in, device probs out; with ``with_features`` also
+        the float32 logits [B, C] and pooled features [B, 2048] (not
+        masked). ``warp`` and ``bottleneck`` swap K1 and K2 for their plain
+        versions when checking the kernels on the card."""
         with torch.inference_mode():
             # loud format check: a facade that forgot to forward
             # upload_format (packing.upload_format_of) must fail here
@@ -174,8 +216,11 @@ class ClipScorer:
                     f"upload_format='rgb' expects crops [B,T,H,W,3]; got shape {tuple(crops.shape)}")
             aligned = self._align_batch(crops, boxes.float(), lm5.float(), scale, warp)
             x = (aligned - self._mean) / self._std
-            probs = torch.sigmoid(self.model(x)[:, 0].float())
-            return torch.where(valid, probs, 0.0)
+            logits, feats = self.model(x, return_features=True, bottleneck=bottleneck)
+            probs = torch.where(valid, torch.sigmoid(logits[:, 0].float()), 0.0)
+            if with_features:
+                return probs, logits.float(), feats
+            return probs
 
     # -- public entry points --------------------------------------------------
 
@@ -191,6 +236,57 @@ class ClipScorer:
 
     def score(self, crops, boxes, lm5, valid) -> np.ndarray:
         return np.asarray(self.score_async(crops, boxes, lm5, valid))
+
+    def score_with_features(self, crops, boxes, lm5, valid):
+        """(probs [B], logits [B, C], pooled penultimate features [B, 2048]),
+        float32 numpy — the reference's forward hook for its RGB-fusion
+        branch (altfreezing/feature.py:92 AFModel)."""
+        out = self._score_impl(
+            self._to_device(crops), self._to_device(boxes, torch.float32),
+            self._to_device(lm5, torch.float32), self._to_device(valid, torch.bool),
+            with_features=True)
+        return tuple(t.cpu().numpy() for t in out)
+
+    def score_dense(self, frames, boxes, lm5, starts, batch: int = 8,
+                    clip_size: Optional[int] = None) -> np.ndarray:
+        """Score sliding windows of one track. ``frames`` [N, S, S, 3] uint8
+        (one uniform pre-scale for the track, ``packing.pack_track``) or
+        planar I420 [N, S*3//2, S], ``boxes`` [N, 4], ``lm5`` [N, 5, 2],
+        ``starts`` the window starts (each ``start + clip_size <= N``) →
+        probs [len(starts)] float32.
+
+        The track goes to the device once; each batch of ``batch`` windows is
+        gathered on the device with an index tensor (nothing is uploaded
+        again) and aligned clip-stably from its own sliced boxes and
+        landmarks; a short last batch is padded with window 0 and masked.
+        The JAX scorer pads N to a multiple of 64 to bound XLA recompiles;
+        eager PyTorch compiles nothing, so N is taken as it is."""
+        T = clip_size or self.cfg.num_frames
+        starts = np.asarray(starts, np.int64).reshape(-1)
+        n = frames.shape[0]
+        hi = n - T
+        if starts.size and (starts.min() < 0 or starts.max() > hi):
+            raise ValueError(
+                f"window starts must be in [0, {hi}] for a {n}-frame track with "
+                f"clip_size={T}; got [{starts.min()}, {starts.max()}]")
+        out = np.zeros((starts.size,), np.float32)
+        if not starts.size:
+            return out
+        n_pad = -(-starts.size // batch) * batch
+        padded = np.zeros((n_pad,), np.int64)
+        padded[:starts.size] = starts
+        valid = np.arange(n_pad) < starts.size
+        with torch.inference_mode():
+            frames_d = self._to_device(frames)
+            boxes_d = self._to_device(boxes, torch.float32)
+            lm5_d = self._to_device(lm5, torch.float32)
+            idx = self._to_device(padded)[:, None] + torch.arange(T, device=self.device)
+            valid_d = self._to_device(valid)
+            probs = [self._score_impl(frames_d[idx[i:i + batch]], boxes_d[idx[i:i + batch]],
+                                      lm5_d[idx[i:i + batch]], valid_d[i:i + batch])
+                     for i in range(0, n_pad, batch)]
+            out[:] = torch.cat(probs)[:starts.size].cpu().numpy()
+        return out
 
     def score_windows(self, windows, boxes, lm5, scale, valid,
                       path: str = "auto") -> ProbsHandle:

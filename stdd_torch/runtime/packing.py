@@ -1,5 +1,6 @@
-"""Clip-batch packing for the streaming engine: per-clip uniform downscale
-into fixed-size zero-padded slots, boxes/landmarks rescaled to match (a
+"""Clip-batch packing for the streaming engine (per-clip uniform downscale
+into fixed-size zero-padded slots) and track packing for dense scoring (one
+uniform scale per track); boxes and landmarks are rescaled to match (a
 similarity fit absorbs a uniform scale exactly).
 
 Own copy of ``stdd_tpu/runtime/packing.py`` without cv2: the I420 encoder
@@ -157,3 +158,26 @@ def pack_clip_batch(
                 boxes[bi, ti], lm5[bi, ti] = _pack_entry(e, crops[bi, ti], s)
         valid[bi] = True
     return crops, boxes, lm5, valid
+
+
+def pack_track(entries: Sequence, S: int, yuv420: bool = False
+               ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pack ONE track's frames (items with .crop/.big_box/.lm5, or dicts)
+    into a buffer for ``ClipScorer.score_dense`` at a single uniform scale
+    for the whole track → (frames [N,S,S,3] uint8, or planar I420
+    [N,S*3//2,S] with ``yuv420``; boxes [N,4]; lm5 [N,5,2])."""
+    if yuv420 and S % 4:
+        raise ValueError("yuv420 packing needs S divisible by 4")
+    N = len(entries)
+    frames = np.zeros((N,) + ((S * 3 // 2, S) if yuv420 else (S, S, 3)), np.uint8)
+    boxes = np.zeros((N, 4), np.float32)
+    lm5 = np.zeros((N, 5, 2), np.float32)
+    max_dim = max(max(_get(e, "crop").shape[0], _get(e, "crop").shape[1]) for e in entries)
+    s = min(1.0, S / float(max_dim))
+    rgb_slot = np.zeros((S, S, 3), np.uint8) if yuv420 else None
+    for i, e in enumerate(entries):
+        if yuv420:
+            boxes[i], lm5[i] = _encode_slot_yuv420(e, rgb_slot, s, frames[i])
+        else:
+            boxes[i], lm5[i] = _pack_entry(e, frames[i], s)
+    return frames, boxes, lm5

@@ -24,7 +24,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()                        # guards _name_locks
+_name_locks: Dict[str, threading.Lock] = {}     # one per library: builds of two run in parallel
 _libs: Dict[str, ctypes.CDLL] = {}
 # by name: the library file, whether it was reused from an earlier build,
 # and its ptxas report (registers, shared memory, spills), which is kept in
@@ -43,8 +44,12 @@ def _nvcc() -> str:
 
 
 def load_cuda_library(name: str, source: str) -> ctypes.CDLL:
-    """Build (once per process and source) and load ``csrc/<source>``."""
+    """Build (once per process and source) and load ``csrc/<source>``.
+    Different libraries build concurrently when called from several
+    threads; two calls for the same library wait for one build."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

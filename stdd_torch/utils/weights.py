@@ -1,4 +1,4 @@
-"""Weight bridge: a flax I3D variables tree → the port's ``state_dict``.
+"""Weight bridge: a flax I3D variables tree ↔ the port's ``state_dict``.
 
 The torch modules are named after the flax tree (``models/i3d.py``), so the
 bridge is a name map plus layout changes:
@@ -10,7 +10,8 @@ bridge is a name map plus layout changes:
 - ``head/projection/kernel`` ``[C,K]`` → ``head.projection.weight`` ``[K,C]``.
 
 Every leaf must be consumed and every model entry produced: leftovers and
-gaps raise.
+gaps raise. :func:`i3d_torch_to_flax` is the inverse, for writing the
+trainer's checkpoint format from the port.
 """
 
 from __future__ import annotations
@@ -75,4 +76,36 @@ def i3d_flax_to_torch(variables, model: Optional[torch.nn.Module] = None
             raise ValueError(
                 f"flax variables do not match the model: missing={missing[:8]} "
                 f"extra={extra[:8]} shape_mismatch={bad[:8]}")
+    return out
+
+
+def i3d_torch_to_flax(state_dict: Mapping) -> Dict[str, dict]:
+    """The inverse map: the port's ``state_dict`` → ``{"params": ...,
+    "batch_stats": ...}`` as nested dicts of float32 numpy arrays (views of
+    the tensors where no copy is needed: a transposed view keeps a
+    broadcast tensor's zero strides), the tree the JAX trainer checkpoints
+    (``num_batches_tracked`` has no flax leaf)."""
+    out: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    inv_param = {v: k for k, v in _BN_PARAM.items()}
+    inv_stat = {v: k for k, v in _BN_STAT.items()}
+    for key, t in state_dict.items():
+        *mod, leaf = key.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        a = t.detach().float().cpu().numpy()
+        if mod[-1:] == ["conv"] and leaf == "weight" and a.ndim == 5:
+            coll, name, a = "params", "kernel", a.transpose(2, 3, 4, 1, 0)
+        elif mod[-1:] == ["bn"] and leaf in inv_param:
+            coll, name = "params", inv_param[leaf]
+        elif mod[-1:] == ["bn"] and leaf in inv_stat:
+            coll, name = "batch_stats", inv_stat[leaf]
+        elif mod == ["head", "projection"] and leaf in ("weight", "bias"):
+            coll, name = "params", "kernel" if leaf == "weight" else "bias"
+            a = a.T if leaf == "weight" else a
+        else:
+            raise ValueError(f"state_dict entry {key!r} has no flax leaf")
+        node = out[coll]
+        for m in mod:
+            node = node.setdefault(m, {})
+        node[name] = a
     return out

@@ -1,6 +1,7 @@
-"""The port on an NVIDIA card: K1 against its plain version, the scorer on
-the card against the same scorer on the CPU, and the device-resident ring
-path (pushes and gathers on a side CUDA stream) against the host-packed path.
+"""The port on an NVIDIA card: K1 and K2 against their plain versions, the
+scorer (unfused and ``fused_s2``, packed and dense) on the card against the
+same scorer on the CPU, and the device-resident ring path (pushes and
+gathers on a side CUDA stream) against the host-packed path.
 
 Every test here needs a card: each is marked ``cuda`` and skips with the
 reason "no CUDA device" where there is none. The file imports no JAX, so on
@@ -19,6 +20,7 @@ import torch
 from stdd_torch.config import I3DConfig, PipelineConfig
 from stdd_torch.eval.scene import Scene
 from stdd_torch.ops.align import STD_POINTS_256
+from stdd_torch.ops.bottleneck import fused_bottleneck, fused_bottleneck_reference
 from stdd_torch.ops.warp import warp_affine, warp_affine_reference
 from stdd_torch.runtime.classifier import ClipScorer
 from stdd_torch.runtime.engine import StreamingEngine
@@ -93,6 +95,88 @@ def test_scorer_on_card_matches_cpu(cuda, fmt):
     want = cpu.score(crops, boxes, lm5, valid)
     assert got[1] == 0.0 and 0.0 < got[0] < 1.0
     assert np.abs(got - want).max() <= 1e-4
+
+
+def _k2_operands(rng, B, T, H, W, cin, co, tk, project, dev, dtype):
+    def w(*shape):
+        fan = int(np.prod(shape[:-1]))
+        return torch.from_numpy((rng.randn(*shape) / np.sqrt(fan)).astype(np.float32)).to(dev)
+
+    def b(n):
+        return torch.from_numpy((rng.randn(n) * 0.1).astype(np.float32)).to(dev)
+
+    x = torch.from_numpy(rng.randn(B, T, H, W, cin).astype(np.float32)).to(dev)
+    ops = [w(tk, cin, 64), b(64), w(3, 3, 64, 64), b(64), w(64, co), b(co)]
+    ops += [w(cin, co), b(co)] if project else [None, None]
+    return x.permute(0, 4, 1, 2, 3).to(dtype), ops
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,T,H,W,cin,co,tk,project", [
+    (1, 4, 28, 28, 64, 256, 3, True),        # s2 block 0 widths, two tiles a side
+    (2, 3, 16, 30, 256, 256, 3, False),      # blocks 1-2 widths, ragged tiles
+    (1, 2, 9, 5, 64, 128, 1, True),          # tk = 1, smaller than one tile
+], ids=["block0", "block1_ragged", "tk1"])
+def test_k2_matches_plain_version(cuda, dtype, B, T, H, W, cin, co, tk, project):
+    """Float32: within 1e-5 of max(1, max |ref|) (the sums run in another
+    order). bf16: within two bf16 ulps of max |ref| on at most 1% of the
+    elements (a float32 sum on the other side of a rounding boundary moves
+    xa, xb or y by one ulp)."""
+    x, ops = _k2_operands(np.random.RandomState(0), B, T, H, W, cin, co, tk, project, cuda, dtype)
+    before = fused_bottleneck.launches
+    got = fused_bottleneck(x, *ops, tk=tk)
+    want = fused_bottleneck_reference(x, *ops, tk=tk)
+    torch.cuda.synchronize()
+    assert fused_bottleneck.launches == before + 1
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last_3d)
+    assert torch.isfinite(got).all()
+    err = float((got.float() - want.float()).abs().max())
+    ref = float(want.float().abs().max())
+    if dtype == torch.float32:
+        assert err <= 1e-5 * max(1.0, ref)
+    else:
+        assert err <= 2 * 2.0 ** (np.floor(np.log2(ref)) - 7)
+        assert float((got != want).float().mean()) <= 0.01
+
+
+def test_k2_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    rng = np.random.RandomState(1)
+    x, ops = _k2_operands(rng, 1, 2, 8, 8, 256, 256, 3, False, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="channels_last_3d"):
+        fused_bottleneck(x.contiguous(), *ops, tk=3)              # NCTHW memory
+    with pytest.raises(ValueError, match="the kernel takes"):
+        y, small = _k2_operands(rng, 1, 2, 8, 8, 16, 16, 3, False, cuda, torch.bfloat16)
+        small[0], small[2], small[4] = small[0][..., :8], small[2][..., :8, :8], small[4][:8]
+        small[1], small[3] = small[1][:8], small[3][:8]
+        fused_bottleneck(y, *small, tk=3)                          # Ci = 8
+    with pytest.raises(ValueError):
+        fused_bottleneck(x, *[o.cpu() if o is not None else None for o in ops], tk=3)
+
+
+def _dense_track(rng, n=14, S=96):
+    frames = rng.randint(0, 256, (n, S, S, 3), np.uint8)
+    boxes = np.tile(np.array([100, 80, 100 + S, 80 + S], np.float32), (n, 1))
+    lm5 = np.tile((STD_POINTS_256 * 0.3 + 10).astype(np.float32), (n, 1, 1))
+    return frames, boxes, lm5 + rng.normal(0, 0.5, lm5.shape).astype(np.float32)
+
+
+def test_fused_scorer_on_card_matches_cpu(cuda):
+    """``fused_s2`` in float32: K2 on the card against its plain version on
+    the CPU through the whole scorer, packed clips and dense windows; three
+    K2 launches per I3D forward."""
+    cfg = I3DConfig(num_frames=8, crop_size=64, fused_s2=True)
+    gpu = ClipScorer.random_init(cfg, seed=0, dtype=torch.float32, device=cuda)
+    cpu = ClipScorer(gpu.model.state_dict(), cfg=cfg, dtype=torch.float32, device="cpu")
+    frames, boxes, lm5 = _dense_track(np.random.RandomState(2))
+    starts = np.array([0, 3, 6])
+    before = fused_bottleneck.launches
+    got = gpu.score_dense(frames, boxes, lm5, starts, batch=2)
+    assert fused_bottleneck.launches == before + 3 * 2          # two forwards
+    assert np.abs(got - cpu.score_dense(frames, boxes, lm5, starts, batch=2)).max() <= 1e-4
+    idx = starts[:, None] + np.arange(8)
+    p, logits, feats = gpu.score_with_features(frames[idx], boxes[idx], lm5[idx], np.ones(3, bool))
+    pc, lc, fc = cpu.score_with_features(frames[idx], boxes[idx], lm5[idx], np.ones(3, bool))
+    assert np.abs(p - pc).max() <= 1e-4 and np.abs(feats - fc).max() <= 1e-4 * max(1, np.abs(fc).max())
 
 
 def _engine_stream(scorer, device_resident):

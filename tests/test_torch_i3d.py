@@ -161,6 +161,39 @@ def test_random_init_follows_jax_initializers(variables):
 
 
 def test_unported_options_are_refused():
-    for flags in (dict(temporal_only=True), dict(fused_s2=True), dict(int8_stages=("s3",))):
+    for flags in (dict(temporal_only=True), dict(int8_stages=("s3",)),
+                  dict(fused_s2=True, int8_stages=("s4", "s5"))):
         with pytest.raises(NotImplementedError):
             I3D(dataclasses.replace(I3DConfig(**CFG), **flags))
+
+
+def test_i3d_fused_s2_matches_jax_fused_s2(variables, clips, torch_out):
+    """``fused_s2``: each stride-1 block of s2 is one K2 call over
+    BN-folded weights (its plain version on the CPU), against the JAX
+    model's fused blocks (the Pallas kernel in interpret mode) on the same
+    bridged variables. The fused model loads the unfused model's
+    ``state_dict`` as it is, and stays within TOL of it too."""
+    model32, lt, ft = torch_out
+    fused = I3D(I3DConfig(**CFG, fused_s2=True))
+    assert set(fused.state_dict()) == set(model32.state_dict())
+    fused.load_state_dict(i3d_flax_to_torch(variables, fused))
+    assert [m.fused_eval for m in fused.s2.children()] == [True] * 3
+    assert not any(m.fused_eval for st in (fused.s3, fused.s4, fused.s5) for m in st.children())
+    with torch.inference_mode():
+        lf, ff = fused.eval()(torch.from_numpy(clips), return_features=True)
+    lj, fj = _jax_forward(variables, clips, fused_s2=True)
+    assert max_rel_err(lf.numpy(), lj) <= TOL
+    assert max_rel_err(ff.numpy(), fj) <= TOL
+    assert max_rel_err(lf.numpy(), lt) <= TOL and max_rel_err(ff.numpy(), ft) <= TOL
+
+
+def test_i3d_fused_s2_bf16_drift_is_bounded(torch_out, clips):
+    """bf16 through the fused s2 (weights folded in float32, then rounded
+    once) stays within the bound the unfused bf16 model meets."""
+    model32, lt, ft = torch_out
+    fused16 = I3D(I3DConfig(**CFG, fused_s2=True), dtype=torch.bfloat16)
+    fused16.load_state_dict(model32.state_dict())
+    with torch.inference_mode():
+        lb, fb = fused16.eval()(torch.from_numpy(clips), return_features=True)
+    assert max_rel_err(lb.numpy(), lt) <= 0.02
+    assert max_rel_err(fb.numpy(), ft) <= 0.02
