@@ -15,9 +15,10 @@ exits non-zero without its result line):
               uint8 and float32, on the main path's shapes, an unaligned
               height, rotations up to ±45°, out-of-image taps, mixed
               geometries in one batch and rows of NaN/inf parameters; times
-              (CUDA events, median over repeats, L2 cold; K1 also warm)
-              beside the bound and the nearest single PyTorch call
-              (``F.grid_sample``);
+              (CUDA events, L2 cold; K1 also warm) beside the bound: K1 and
+              the nearest single PyTorch call (``F.grid_sample``) in turns
+              (K1, library, library, K1, repeated), every round printed with
+              the SM clock and power nvidia-smi sampled beside it;
 4. scorer   — the full-width I3D-R50 scorer (32×224², bf16, I420 upload,
               256-px crop buffer) on ring-style windows of different
               content: finite probs, the kernel against the plain warp
@@ -30,11 +31,13 @@ exits non-zero without its result line):
               fps, window latency, K1 launches per dispatched batch, and one
               identical clip through the ring and the host-packed paths;
 6. K2       — the fused s2 bottleneck against its plain PyTorch version in
-              bf16 and float32 at the serving shapes (block 0 with its
-              projection, block 1 identity; B = 1, 2 and score_dense's 8),
-              tk = 1, and a ragged T/H/W; times at B = 1, 2 and 8 with a
-              cold L2 beside the bound, the plain version and the port's
-              unfused cuDNN block;
+              bf16 (the tensor-core kernel) and float32 (the scalar kernel)
+              at the serving shapes (block 0 with its projection, block 1
+              identity; B = 1, 2 and score_dense's 8), tk = 1, and a ragged
+              T/H/W, each case checked to have run its dtype's kernel; bf16
+              times at B = 1, 2 and 8 with a cold L2 beside the bound, the
+              achieved TFLOP/s, the plain version and the port's unfused
+              cuDNN block;
 7. fused scorer — a checkpoint written by the port's ``save_checkpoint``
               from the random-init scorer, served by ``from_jax_checkpoint``
               with ``I3DConfig(fused_s2=True)`` at 32×224² in bf16 and
@@ -60,6 +63,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -97,6 +101,7 @@ L2_BYTES = 50 * 2 ** 20
 # weights (6), 3 channels × (8 mul + 3 add)
 K1_FLOPS_PER_PIXEL = 47
 K1_TOL = 1e-3          # float32 evaluation order; the design is bit-exact
+K1_PAIRS = 5           # K1 / grid_sample timing: 5 × (K1, lib, lib, K1) → 10 rounds each
 # bounds of the scorer phase. The *_rel ones are fractions of how far two
 # clips of different content lie apart through the float32 scorer (pooled
 # features: the distance of the two feature vectors; logits: their gap), so
@@ -166,28 +171,85 @@ def event_ms(fn, reps: int, rounds: int = 5) -> float:
     return float(np.median(times))
 
 
+def cold_round_ms(fn, arg_sets, reps: int) -> float:
+    """One round of ``cold_ms``: device time of one ``fn(*args)`` over
+    ``reps`` back-to-back calls cycling through ``arg_sets``, every output
+    alive until the round ends."""
+    keep = []
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for i in range(reps):
+        keep.append(fn(*arg_sets[i % len(arg_sets)]))
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+class SmiSampler:
+    """``nvidia-smi`` sampling the SM clock and power draw every 20 ms in a
+    child process, read by a thread; ``near(t0, t1)`` gives the samples
+    taken from 20 ms before host time ``t0`` to 20 ms after ``t1``."""
+
+    def __init__(self):
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+             "-lms", "20"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                mhz, watts = (float(v) for v in line.split(","))
+            except ValueError:
+                continue
+            self.samples.append((time.perf_counter(), mhz, watts))
+
+    def near(self, t0: float, t1: float):
+        return [(mhz, w) for t, mhz, w in self.samples if t0 - 0.02 <= t <= t1 + 0.02]
+
+    def close(self):
+        self.proc.terminate()
+        self.proc.wait()
+        self.reader.join()
+
+
+def interleaved_ms(fns: dict, arg_sets, reps: int, pairs: int, smi: SmiSampler) -> dict:
+    """Cold rounds (``cold_round_ms``) of two functions in turns, A B B A
+    repeated ``pairs`` times after one untimed round of each, so drift in
+    the card's state falls on both alike. For each: every round's ms with
+    the SM clock (MHz) and power (W) sampled beside it, and the min, median
+    and max."""
+    (na, fa), (nb, fb) = fns.items()
+    for f in (fa, fb):
+        cold_round_ms(f, arg_sets, reps)
+    rounds = {na: [], nb: []}
+    for _ in range(pairs):
+        for name, f in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+            t0 = time.perf_counter()
+            ms = cold_round_ms(f, arg_sets, reps)
+            near = smi.near(t0, time.perf_counter())
+            rounds[name].append({"ms": ms, "sm_mhz": [m for m, _ in near],
+                                 "power_w": [w for _, w in near]})
+    out = {}
+    for name, rs in rounds.items():
+        ms = [r["ms"] for r in rs]
+        out[name] = {"rounds": rs, "min": min(ms), "median": float(np.median(ms)), "max": max(ms)}
+    return out
+
+
 def cold_ms(fn, arg_sets, reps: int, rounds: int = 5) -> float:
     """Device time of one ``fn(*args)`` with a cold L2, to hold against the
-    HBM bound: the back-to-back calls cycle through ``arg_sets``, whose inputs
-    together are several times the L2, and every output of a round stays
-    alive until the round ends, so no call finds its inputs in L2 or writes
-    where an earlier call did. An untimed round first fills the allocator's
-    cache. Median over ``rounds``."""
-    for timed in [False] + [True] * rounds:
-        keep = []
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        a.record()
-        for i in range(reps):
-            keep.append(fn(*arg_sets[i % len(arg_sets)]))
-        b.record()
-        b.synchronize()
-        if timed:
-            times.append(a.elapsed_time(b) / reps)
-        else:
-            times = []
-        del keep
-    return float(np.median(times))
+    HBM bound: the back-to-back calls of a round (``cold_round_ms``) cycle
+    through ``arg_sets``, whose inputs together are several times the L2,
+    and every output of a round stays alive until the round ends, so no
+    call finds its inputs in L2 or writes where an earlier call did. An
+    untimed round first fills the allocator's cache. Median over
+    ``rounds``."""
+    cold_round_ms(fn, arg_sets, reps)
+    return float(np.median([cold_round_ms(fn, arg_sets, reps) for _ in range(rounds)]))
 
 
 # -- phase 3: K1 --------------------------------------------------------------
@@ -257,43 +319,68 @@ def phase_k1(dev):
 
     # timing at the main path's shapes: I420 upload → float32 crops after
     # yuv420_to_rgb; B=1 (N=32, one face) and B=2 (N=64, batch_clips=2).
-    # ms / plain_ms / library_ms are cold-L2 times (cold_ms), held against
-    # the HBM bound; ms_warm_l2 is K1 relaunched on one input set.
+    # ms / plain_ms / library_ms are cold-L2 times, held against the HBM
+    # bound: K1 and the library call in turns (interleaved_ms), each round
+    # printed with the SM clock and power beside it; ms_warm_l2 is K1
+    # relaunched on one input set.
     timings = {}
-    for N in (32, 64):
-        per_set = N * 256 * 256 * 3 * 4 + N * S * S * 3 * 4
-        sets = []
-        for _ in range(-(-4 * L2_BYTES // per_set) + 1):
-            crops = torch.from_numpy(rng.randint(0, 256, (N, 256, 256, 3), np.uint8)).to(dev).float()
-            p = torch.from_numpy(similarity_params(rng, N, 256, 256, S, 10)).to(dev)
-            # the nearest single library call: grid_sample (bilinear, zero
-            # padding) over the planar view with a precomputed sampling grid
-            r = torch.arange(S, device=dev, dtype=torch.float32)[None, :, None]
-            c = torch.arange(S, device=dev, dtype=torch.float32)[None, None, :]
-            x = p[:, 0, None, None] * c + p[:, 1, None, None] * r + p[:, 2, None, None]
-            y = p[:, 3, None, None] * c + p[:, 4, None, None] * r + p[:, 5, None, None]
-            grid = torch.stack([x * (2.0 / 255) - 1, y * (2.0 / 255) - 1], -1)
-            sets.append((crops, p, crops.permute(0, 3, 1, 2), grid))
-        reps = 4 * len(sets)
-        ms = cold_ms(lambda c, p, *_: warp_affine(c, p, S), sets, reps)
-        warm_ms = event_ms(lambda: warp_affine(sets[0][0], sets[0][1], S), 50)
-        plain_ms = cold_ms(lambda c, p, *_: warp_affine_reference(c, p, S), sets, reps)
-        lib_ms = cold_ms(lambda c, p, planar, grid: F.grid_sample(
-            planar, grid, mode="bilinear", padding_mode="zeros", align_corners=True), sets, reps)
-        crops, p, planar, grid = sets[0]
-        lib_err = float((F.grid_sample(planar, grid, align_corners=True).permute(0, 2, 3, 1)
-                         - warp_affine_reference(crops, p, S)).abs().max())
-        nbytes = crops.numel() * 4 + p.numel() * 4 + N * S * S * 3 * 4
-        flops = K1_FLOPS_PER_PIXEL * N * S * S
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
-        timings[N] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=max(t_bytes, t_ops),
-                          bound_by="bytes" if t_bytes >= t_ops else "operations")
-        emit({"phase": "k1_time", "N": N, "H": 256, "W": 256, "S": S, "in_dtype": "float32",
-              "bytes": nbytes, "flops": flops, **timings[N], "l2": "cold", "input_sets": len(sets),
-              "ms_warm_l2": warm_ms, "library": "F.grid_sample", "library_max_abs_diff": lib_err})
-        del sets
+    smi = SmiSampler()
+    try:
+        for N in (32, 64):
+            timings[N] = k1_time(dev, rng, N, S, smi)
+    finally:
+        smi.close()
     return max_err, timings
+
+
+def k1_time(dev, rng, N: int, S: int, smi: SmiSampler) -> dict:
+    """K1 and ``F.grid_sample`` in turns with a cold L2 at N frames, its
+    plain version and K1 with a warm L2; → the kernels-line numbers."""
+    per_set = N * 256 * 256 * 3 * 4 + N * S * S * 3 * 4
+    sets = []
+    for _ in range(-(-4 * L2_BYTES // per_set) + 1):
+        crops = torch.from_numpy(rng.randint(0, 256, (N, 256, 256, 3), np.uint8)).to(dev).float()
+        p = torch.from_numpy(similarity_params(rng, N, 256, 256, S, 10)).to(dev)
+        # the nearest single library call: grid_sample (bilinear, zero
+        # padding) over the planar view with a precomputed sampling grid
+        r = torch.arange(S, device=dev, dtype=torch.float32)[None, :, None]
+        c = torch.arange(S, device=dev, dtype=torch.float32)[None, None, :]
+        x = p[:, 0, None, None] * c + p[:, 1, None, None] * r + p[:, 2, None, None]
+        y = p[:, 3, None, None] * c + p[:, 4, None, None] * r + p[:, 5, None, None]
+        grid = torch.stack([x * (2.0 / 255) - 1, y * (2.0 / 255) - 1], -1)
+        sets.append((crops, p, crops.permute(0, 3, 1, 2), grid))
+    # rounds of about 5 ms, so each spans the nvidia-smi samples near it
+    reps = len(sets) * max(4, round(5.0 / (0.03 * N / 32) / len(sets)))
+    turns = interleaved_ms({
+        "k1": lambda c, p, *_: warp_affine(c, p, S),
+        "library": lambda c, p, planar, grid: F.grid_sample(
+            planar, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+    }, sets, reps, K1_PAIRS, smi)
+    ms, lib_ms = turns["k1"]["median"], turns["library"]["median"]
+    warm_ms = event_ms(lambda: warp_affine(sets[0][0], sets[0][1], S), 50)
+    plain_ms = cold_ms(lambda c, p, *_: warp_affine_reference(c, p, S), sets, 4 * len(sets))
+    crops, p, planar, grid = sets[0]
+    lib_err = float((F.grid_sample(planar, grid, align_corners=True).permute(0, 2, 3, 1)
+                     - warp_affine_reference(crops, p, S)).abs().max())
+    nbytes = crops.numel() * 4 + p.numel() * 4 + N * S * S * 3 * 4
+    flops = K1_FLOPS_PER_PIXEL * N * S * S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    timing = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                  bound_ms=max(t_bytes, t_ops),
+                  bound_by="bytes" if t_bytes >= t_ops else "operations")
+    emit({"phase": "k1_time", "N": N, "H": 256, "W": 256, "S": S, "in_dtype": "float32",
+          "bytes": nbytes, "flops": flops, **timing, "l2": "cold", "input_sets": len(sets),
+          "launches_per_round": reps, "ms_warm_l2": warm_ms, "library": "F.grid_sample",
+          "library_max_abs_diff": lib_err,
+          "turns": "k1, library, library, k1, repeated; ms and library_ms are the medians",
+          **{f"{k}_{stat}": turns[k][stat] for k in turns for stat in ("min", "max")}})
+    for name, t in turns.items():
+        emit({"phase": "k1_rounds", "N": N, "fn": name, "ms": [r["ms"] for r in t["rounds"]],
+              "sm_mhz": [r["sm_mhz"] for r in t["rounds"]],
+              "power_w": [r["power_w"] for r in t["rounds"]],
+              "min": t["min"], "median": t["median"], "max": t["max"]})
+    del sets
+    return timing
 
 
 # -- phase 4: scorer ----------------------------------------------------------
@@ -576,15 +663,20 @@ def phase_k2_check(dev) -> float:
     for dtype in (torch.bfloat16, torch.float32):
         for name, B, T, H, W, cin, co, tk, project in K2_CASES:
             x, ops = k2_operands(rng, B, T, H, W, cin, co, tk, project, dev, dtype)
+            before = dict(fused_bottleneck.launches_by_kernel)
             got = fused_bottleneck(x, *ops, tk=tk)
+            ran = [k for k, n in fused_bottleneck.launches_by_kernel.items() if n != before[k]]
             want = fused_bottleneck_reference(x, *ops, tk=tk)
             torch.cuda.synchronize()
+            if ran != [k2.KERNELS[dtype]]:
+                raise AssertionError(f"K2 {name}/{dtype}: ran {ran}, not {k2.KERNELS[dtype]}")
             ok_layout = got.is_contiguous(memory_format=torch.channels_last_3d)
             err = float((got.float() - want.float()).abs().max())
             ref_max = float(want.float().abs().max())
             rec = {"phase": "k2_check", "case": name, "dtype": str(dtype).replace("torch.", ""),
                    "B": B, "T": T, "H": H, "W": W, "Cin": cin, "Co": co, "tk": tk,
-                   "projection": project, "max_abs_err": err, "max_abs_ref": ref_max}
+                   "projection": project, "kernel": ran[0], "max_abs_err": err,
+                   "max_abs_ref": ref_max}
             if dtype == torch.float32:
                 tol = K2_TOL_F32_REL * max(1.0, ref_max)
             else:
@@ -644,8 +736,11 @@ def phase_k2_time(dev) -> dict:
                                       bytes_ms=t_bytes, ops_ms=t_ops, library_ms=None,
                                       unfused_ms=unfused_ms)
             emit({"phase": "k2_time", "block": name, "B": B, "T": T, "H": H, "W": W, "Cin": cin,
-                  "Co": co, "tk": 3, "projection": project, "dtype": "bfloat16", "bytes": nbytes,
-                  "flops": flops, **timings[(B, name)], "l2": "cold", "input_sets": n_sets,
+                  "Co": co, "tk": 3, "projection": project, "dtype": "bfloat16",
+                  "kernel": k2.KERNELS[torch.bfloat16], "bytes": nbytes, "flops": flops,
+                  **timings[(B, name)], "tflops": flops / ms * 1e-9,
+                  "bf16_peak_share": flops / ms * 1e3 / PEAK_BF16_FLOPS,
+                  "faster_than_unfused": ms < unfused_ms, "l2": "cold", "input_sets": n_sets,
                   "library": None, "library_note": "no single PyTorch call computes a whole "
                   "bottleneck", "unfused": "the port's ResBlock (cuDNN F.conv3d)"})
             del sets, block

@@ -8,12 +8,14 @@ convolutions::
 
 with ``a`` a tk×1×1 convolution (zero padding in T), ``b`` a 1×3×3
 convolution (zero padding in H and W), ``c`` a 1×1×1 convolution and the
-shortcut the identity or a 1×1×1 projection. The CUDA kernel
-(``csrc/fused_bottleneck.cu``) keeps the two 64-channel intermediates in
-shared memory; its source note gives the bound and the design.
-:func:`fused_bottleneck` is the only entry point: a CPU tensor goes to
-:func:`fused_bottleneck_reference`, a CUDA tensor to the kernel (built with
-``nvcc`` at first use) or the call raises.
+shortcut the identity or a 1×1×1 projection. The CUDA source
+(``csrc/fused_bottleneck.cu``) holds two kernels that keep the two
+64-channel intermediates in shared memory: bf16 runs on the tensor cores
+(``mma.sync``), float32 on the CUDA cores (scalar FMAs); its source note
+gives the bound and the design. :func:`fused_bottleneck` is the only entry
+point: a CPU tensor goes to :func:`fused_bottleneck_reference`, a CUDA
+tensor to the kernel of its dtype (built with ``nvcc`` at first use) or the
+call raises.
 
 Layout: activations are NCTHW tensors in ``channels_last_3d`` memory order,
 the port's activation layout (``models/i3d.py``), whose memory is
@@ -32,11 +34,16 @@ import torch.nn.functional as F
 
 from ..utils.cuda_build import load_cuda_library
 
-# what the kernel takes: the inner width is fixed, the input width is
-# staged in chunks of 16 channels and the output width in chunks of 64
+# what the kernels take: the inner width is fixed, the input width is
+# staged in chunks of 16 channels (scalar) or 64, masked per 8 (bf16), and
+# the output width in chunks of 64
 KERNEL_CI = 64
 KERNEL_CIN_MULTIPLE = 16
 KERNEL_CO_MULTIPLE = 64
+# the C entry point of each kernel, by dtype: bf16 on the tensor cores,
+# float32 on the CUDA cores; neither stands in for the other
+KERNELS = {torch.bfloat16: "fused_bottleneck_bf16_launch",
+           torch.float32: "fused_bottleneck_f32_launch"}
 
 
 def fold_bn(w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -87,11 +94,11 @@ def fused_bottleneck_reference(x: torch.Tensor, wa, ba, wb, bb, wc, bc, ws=None,
 
 def _kernel_lib() -> ctypes.CDLL:
     lib = load_cuda_library("fused_bottleneck", "fused_bottleneck.cu")
-    fn = lib.fused_bottleneck_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    for name in KERNELS.values():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -110,9 +117,11 @@ def fused_bottleneck(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor, wb: to
     ``x.dtype``, ``channels_last_3d``. ``ws``/``bs`` give the projection
     shortcut; without them ``Cin`` must equal ``Co``. ``tk`` is 1 or 3.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel on the
-    current stream (``fused_bottleneck.launches`` counts those launches). No
-    other device, dtype, layout or width is taken."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel of
+    their dtype (``KERNELS``) on the current stream
+    (``fused_bottleneck.launches`` counts those launches, and
+    ``fused_bottleneck.launches_by_kernel`` each kernel's). No other device,
+    dtype, layout or width is taken."""
     if x.dim() != 5:
         raise ValueError(f"x must be [B, Cin, T, H, W]; got {tuple(x.shape)}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -164,18 +173,23 @@ def fused_bottleneck(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor, wb: to
     wa, wb, wc, ba, bb, bc = (t.contiguous() for t in (wa, wb, wc, ba, bb, bc))
     if project:
         ws, bs = ws.contiguous(), bs.contiguous()
-    lib = _kernel_lib()
+    if dt == torch.bfloat16 and any(t.data_ptr() % 16 for t in (wa, wb, wc, ws)
+                                    if t is not None):
+        raise ValueError("fused_bottleneck in bf16 needs wa, wb, wc and ws 16-byte aligned")
+    name = KERNELS[dt]
+    launch = getattr(_kernel_lib(), name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.fused_bottleneck_launch(
-            int(dt == torch.bfloat16), x.data_ptr(), wa.data_ptr(), ba.data_ptr(),
-            wb.data_ptr(), bb.data_ptr(), wc.data_ptr(), bc.data_ptr(),
-            ws.data_ptr() if project else None, bs.data_ptr() if project else None,
-            out.data_ptr(), B, T, H, W, Cin, Co, tk, stream)
+        rc = launch(x.data_ptr(), wa.data_ptr(), ba.data_ptr(), wb.data_ptr(), bb.data_ptr(),
+                    wc.data_ptr(), bc.data_ptr(), ws.data_ptr() if project else None,
+                    bs.data_ptr() if project else None, out.data_ptr(), B, T, H, W, Cin, Co,
+                    tk, stream)
     if rc != 0:
-        raise RuntimeError(f"fused_bottleneck kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"fused_bottleneck kernel launch failed ({name}): cudaError {rc}")
     fused_bottleneck.launches += 1
+    fused_bottleneck.launches_by_kernel[name] += 1
     return out
 
 
 fused_bottleneck.launches = 0
+fused_bottleneck.launches_by_kernel = dict.fromkeys(KERNELS.values(), 0)

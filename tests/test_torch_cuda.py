@@ -20,7 +20,7 @@ import torch
 from stdd_torch.config import I3DConfig, PipelineConfig
 from stdd_torch.eval.scene import Scene
 from stdd_torch.ops.align import STD_POINTS_256
-from stdd_torch.ops.bottleneck import fused_bottleneck, fused_bottleneck_reference
+from stdd_torch.ops.bottleneck import KERNELS, fused_bottleneck, fused_bottleneck_reference
 from stdd_torch.ops.warp import warp_affine, warp_affine_reference
 from stdd_torch.runtime.classifier import ClipScorer
 from stdd_torch.runtime.engine import StreamingEngine
@@ -63,6 +63,28 @@ def test_warp_kernel_matches_plain_version(cuda):
         assert float((got - warp_affine_reference(c, p, 48)).abs().max()) <= 1e-3
         assert float(got[4:].abs().max()) == 0.0
     assert warp_affine.launches == before + 2
+
+
+@pytest.mark.parametrize("N,S", [(1, 224), (3, 222), (2, 45)],
+                         ids=["N1", "S222", "odd_S45"])
+def test_warp_kernel_bit_exact_at_ragged_sizes(cuda, N, S):
+    """One frame; S = 222, not a multiple of 4, whose 128-pixel strips cross
+    rows; odd S, whose frames are not 16-byte aligned (scalar stores). Bit
+    for bit with the plain version in uint8 and float32."""
+    rng = np.random.RandomState(3)
+    crops = torch.from_numpy(rng.randint(0, 256, (N, 250, 256, 3), np.uint8)).to(cuda)
+    ang = np.radians(rng.uniform(-30, 30, N))
+    c, s = np.cos(ang) * 1.1, np.sin(ang) * 1.1
+    params = np.zeros((N, 8), np.float32)
+    params[:, 0], params[:, 1], params[:, 3], params[:, 4] = c, -s, s, c
+    params[:, 2] = 128 - (c - s) * S / 2
+    params[:, 5] = 125 - (s + c) * S / 2
+    p = torch.from_numpy(params).to(cuda)
+    for crop in (crops, crops.float()):
+        got = warp_affine(crop, p, S)
+        torch.cuda.synchronize()
+        assert got.shape == (N, S, S, 3)
+        assert float((got - warp_affine_reference(crop, p, S)).abs().max()) == 0.0
 
 
 def test_warp_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -123,11 +145,20 @@ def test_k2_matches_plain_version(cuda, dtype, B, T, H, W, cin, co, tk, project)
     elements (a float32 sum on the other side of a rounding boundary moves
     xa, xb or y by one ulp)."""
     x, ops = _k2_operands(np.random.RandomState(0), B, T, H, W, cin, co, tk, project, cuda, dtype)
+    _check_k2(x, ops, tk)
+
+
+def _check_k2(x, ops, tk):
+    """K2 against its plain version: the kernel of x's dtype ran once."""
+    dtype = x.dtype
     before = fused_bottleneck.launches
+    by_kernel = dict(fused_bottleneck.launches_by_kernel)
     got = fused_bottleneck(x, *ops, tk=tk)
     want = fused_bottleneck_reference(x, *ops, tk=tk)
     torch.cuda.synchronize()
     assert fused_bottleneck.launches == before + 1
+    assert {k: n - by_kernel[k] for k, n in fused_bottleneck.launches_by_kernel.items()} == {
+        k: int(k == KERNELS[dtype]) for k in by_kernel}
     assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last_3d)
     assert torch.isfinite(got).all()
     err = float((got.float() - want.float()).abs().max())
@@ -137,6 +168,15 @@ def test_k2_matches_plain_version(cuda, dtype, B, T, H, W, cin, co, tk, project)
     else:
         assert err <= 2 * 2.0 ** (np.floor(np.log2(ref)) - 7)
         assert float((got != want).float().mean()) <= 0.01
+
+
+@pytest.mark.parametrize("cin,project", [(64, True), (256, False)], ids=["block0", "block1"])
+def test_k2_bf16_at_the_dense_batch(cuda, cin, project):
+    """bf16 (the tensor-core kernel) at score_dense's batch of 8 clips and
+    the serving widths (T 32, H = W 56, Co 256), at _check_k2's tolerances."""
+    x, ops = _k2_operands(np.random.RandomState(4), 8, 32, 56, 56, cin, 256, 3, project, cuda,
+                          torch.bfloat16)
+    _check_k2(x, ops, 3)
 
 
 def test_k2_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -151,6 +191,10 @@ def test_k2_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fused_bottleneck(y, *small, tk=3)                          # Ci = 8
     with pytest.raises(ValueError):
         fused_bottleneck(x, *[o.cpu() if o is not None else None for o in ops], tk=3)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        shifted = torch.empty(ops[0].numel() + 1, dtype=torch.bfloat16, device=cuda)[1:]
+        misaligned = shifted.view(ops[0].shape).copy_(ops[0])       # 2 bytes past 16
+        fused_bottleneck(x, misaligned, *ops[1:], tk=3)
 
 
 def _dense_track(rng, n=14, S=96):
