@@ -30,7 +30,30 @@ exits non-zero without its result line):
               device-resident rings) on the scene oracle with one face:
               fps, window latency, K1 launches per dispatched batch, and one
               identical clip through the ring and the host-packed paths;
-6. K2       — the fused s2 bottleneck against its plain PyTorch version in
+6. detector — the port's YuNet (ONNX reader → torch executor → decode →
+              NMS) on a YuNet-shaped graph with yunet_n's layout and random
+              weights (``"weights": "synthetic"``): head outputs and
+              detections on the card against the same module on the CPU,
+              and the times of detect at B = 1 and 4, the NMS on the host
+              and ``detect_scaled`` from a 1080p frame; the heads' distance
+              from the CPU and detect's time with TF32 on, which the app
+              leaves off;
+7. engine_detector — the engine phase again with ``detect_scaled`` on the
+              card in the AsyncDetector, returning the oracle's rows
+              (``"detections_real": false``): fps and window latency beside
+              the oracle-only run, and how much of the detections' device
+              time overlapped the scorer's;
+8. server   — MultiStreamServer with 2 and 4 calls (a 1080p scene of its
+              own seed each, one face), first shipping each window at once
+              (the ring-mode default), then holding a window up to one
+              round of the calls so clips of two calls share a batch: each
+              stream's scores against a standalone engine's on the same
+              frames, aggregate fps, window latency, clips per dispatched
+              batch, batches that mix calls, and K1 launches per batch;
+9. app      — RealtimeApp + run_loop, headless, over 180 scene frames with
+              the engine_detector's detector: the meeting verdict, fps and
+              the scored tracks;
+10. K2      — the fused s2 bottleneck against its plain PyTorch version in
               bf16 (the tensor-core kernel) and float32 (the scalar kernel)
               at the serving shapes (block 0 with its projection, block 1
               identity; B = 1, 2 and score_dense's 8), tk = 1, and a ragged
@@ -38,19 +61,20 @@ exits non-zero without its result line):
               times at B = 1, 2 and 8 with a cold L2 beside the bound, the
               achieved TFLOP/s, the plain version and the port's unfused
               cuDNN block;
-7. fused scorer — a checkpoint written by the port's ``save_checkpoint``
+11. fused scorer — a checkpoint written by the port's ``save_checkpoint``
               from the random-init scorer, served by ``from_jax_checkpoint``
               with ``I3DConfig(fused_s2=True)`` at 32×224² in bf16 and
               float32: K2 against its plain version through the whole
               float32 scorer, fused against unfused, bf16 against float32,
               and the I3D forward time fused beside unfused;
-8. dense    — ``score_dense`` as the offline demo drives it
+12. dense   — ``score_dense`` as the offline demo drives it
               (``stdd_tpu/eval/demo.py:188``): every stride-1 window of a
               300-frame (10 s at 30 fps) I420 track, batch 8, through the
               fused scorer: K2 and K1 launches per forward, dense against
               host-packed windows, windows per second beside the unfused
               scorer's on the same track.
 
+The K2 phases (10) run before the scorer (4) in the script, as they did.
 Every measurement is printed as one JSON object per line; then the
 ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or stdd_tpu.
@@ -83,11 +107,16 @@ from stdd_torch.ops.align import STD_POINTS_256  # noqa: E402
 from stdd_torch.ops.bottleneck import fused_bottleneck, fused_bottleneck_reference  # noqa: E402
 from stdd_torch.ops.warp import build_kernel, warp_affine, warp_affine_reference  # noqa: E402
 from stdd_torch.runtime.classifier import ClipScorer, yuv420_to_rgb  # noqa: E402
+from stdd_torch.models.yunet import YuNet, detect_scaled, resize_linear_u8  # noqa: E402
+from stdd_torch.ops.nms import nms_fixed  # noqa: E402
+from stdd_torch.runtime.app import RealtimeApp, run_loop  # noqa: E402
 from stdd_torch.runtime.engine import AsyncDetector, StreamingEngine, _FrameEntry  # noqa: E402
 from stdd_torch.runtime.packing import pack_clip_batch, pack_track  # noqa: E402
 from stdd_torch.runtime.ring import DeviceRing, RingKernels  # noqa: E402
+from stdd_torch.runtime.server import MultiStreamServer  # noqa: E402
 from stdd_torch.utils.checkpoint import save_checkpoint  # noqa: E402
 from stdd_torch.utils.cuda_build import build_info  # noqa: E402
+from stdd_torch.utils.onnx_writer import write_onnx, yunet_shaped_graph  # noqa: E402
 from stdd_torch.utils.weights import i3d_torch_to_flax  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the float32 rate
@@ -152,22 +181,23 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def event_ms(fn, reps: int, rounds: int = 5) -> float:
-    """Device time of one ``fn()`` (CUDA events around ``reps`` back-to-back
-    calls, divided by ``reps``; median over ``rounds``), after one warm-up
-    call. Inputs stay in L2 between calls where they fit in its 50 MB: a
-    warm-L2 time."""
-    fn()
-    torch.cuda.synchronize()
+def event_ms(fn, reps: int, rounds: int = 5, stream=None) -> float:
+    """Device time of one ``fn()`` on ``stream`` (the current one when
+    None): CUDA events around ``reps`` back-to-back calls, divided by
+    ``reps``, median over ``rounds``, after one warm-up call. Inputs stay in
+    L2 between calls where they fit in its 50 MB: a warm-L2 time."""
     times = []
-    for _ in range(rounds):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
+    with torch.cuda.stream(stream):
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(rounds):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
 
 
@@ -565,31 +595,49 @@ def window_vs_packed_delta(scorer, pipe, crop_buffer: int) -> float:
     return float(abs(p_ring[0] - p_packed[0]))
 
 
-def phase_engine(scorer, smi):
-    pipe = PipelineConfig(clip_size=32, stride=30, detect_every=4, batch_clips=2,
-                          min_face_side=10)
-    scene = Scene((1080, 1920), n_faces=1, seed=SEED)
-    eng = StreamingEngine(
-        scorer, AsyncDetector(scene.oracle(pipe.detect_every)), cfg=pipe, crop_buffer=256,
-        q_weighting=False, q_lap_hard=0.0, start_conf=0.3,
-        track_kwargs=dict(track_thresh=0.35, match_thresh=0.6, track_buffer=2000,
-                          split_low_scores=False))
+ENGINE_PIPE = dict(clip_size=32, stride=30, detect_every=4, batch_clips=2, min_face_side=10)
+ENGINE_KW = dict(crop_buffer=256, q_weighting=False, q_lap_hard=0.0, start_conf=0.3,
+                 track_kwargs=dict(track_thresh=0.35, match_thresh=0.6, track_buffer=2000,
+                                   split_low_scores=False))
+ENGINE_WARM, ENGINE_FRAMES = 70, 240
+
+
+def engine_numbers(eng, scored, dt, n_frames, launches, batches) -> dict:
+    """fps, window latency and K1 launches of one timed engine or server run."""
+    probs = np.array([p for _, p in scored], np.float64)
+    lats = 1000.0 * np.asarray(eng.clip_latencies, np.float64)
+    if not scored:
+        raise AssertionError("no clip was scored")
+    if not np.isfinite(probs).all():
+        raise AssertionError(f"non-finite scores: {probs}")
+    if launches == 0 or launches != batches:
+        raise AssertionError(f"K1 launches {launches} != dispatched batches {batches}")
+    return {"frames": n_frames, "fps": n_frames / dt, "clips_scored": len(scored),
+            "batches_dispatched": batches, "k1_launches": launches,
+            "k1_launches_per_batch": launches / batches,
+            "window_latency_p50_ms": float(np.percentile(lats, 50)) if lats.size else None,
+            "window_latency_p95_ms": float(np.percentile(lats, 95)) if lats.size else None}
+
+
+def drive_engine(scorer, frames, detect_fn) -> dict:
+    """The live path at the bench's operating point (``bench.py:215-263``):
+    warm-up, then ``ENGINE_FRAMES`` timed frames with K1's count zeroed
+    just before and read just after."""
+    eng = StreamingEngine(scorer, AsyncDetector(detect_fn), cfg=PipelineConfig(**ENGINE_PIPE),
+                          **ENGINE_KW)
     if not eng.device_resident:
         raise AssertionError("engine did not take the device-resident ring path")
-    warm, n_frames = 70, 240
-    # the scene is rendered before the clock starts: making data is set-up
-    frames = [scene.frame(i) for i in range(warm + n_frames)]
     try:
         eng.warmup()
-        for i in range(warm):
+        for i in range(ENGINE_WARM):
             eng.step(frames[i])
         eng.flush()
         eng.clip_latencies.clear()
         seq0 = eng._group._next_seq
-        warp_affine.launches = 0                      # the main path's run starts here
+        warp_affine.launches = 0                      # the path's run starts here
         scored = []
         t0 = time.perf_counter()
-        for i in range(warm, warm + n_frames):
+        for i in range(ENGINE_WARM, ENGINE_WARM + ENGINE_FRAMES):
             scored += eng.step(frames[i])
         scored += eng.flush()
         dt = time.perf_counter() - t0
@@ -597,31 +645,364 @@ def phase_engine(scorer, smi):
         batches = eng._group._next_seq - seq0
     finally:
         eng.close()
-    probs = np.array([p for _, p in scored], np.float64)
-    lats = 1000.0 * np.asarray(eng.clip_latencies, np.float64)
-    res = {"phase": "engine", "card": smi, "frames": n_frames, "fps": n_frames / dt,
-           "clips_scored": len(scored), "batches_dispatched": batches,
-           "k1_launches": launches,
-           "window_latency_p50_ms": float(np.percentile(lats, 50)) if lats.size else None,
-           "window_latency_p95_ms": float(np.percentile(lats, 95)) if lats.size else None,
-           "tracks": len(eng.track_clip_scores)}
-    if not scored:
-        raise AssertionError("engine scored no clips")
-    if not np.isfinite(probs).all():
-        raise AssertionError(f"engine produced non-finite scores: {probs}")
-    if launches == 0 or launches != batches:
-        raise AssertionError(f"K1 launches {launches} != dispatched batches {batches}")
-    delta = window_vs_packed_delta(scorer, pipe, 256)
+    res = engine_numbers(eng, scored, dt, ENGINE_FRAMES, launches, batches)
+    res["tracks"] = len(eng.track_clip_scores)
+    return res
+
+
+def phase_engine(scorer, smi, scene, frames):
+    pipe = PipelineConfig(**ENGINE_PIPE)
+    res = {"phase": "engine", "card": smi, "detector": "scene oracle",
+           **drive_engine(scorer, frames, scene.oracle(pipe.detect_every))}
+    delta = window_vs_packed_delta(scorer, pipe, ENGINE_KW["crop_buffer"])
     res["window_vs_packed_score_delta"] = delta
     res["window_vs_packed_tol"] = WINDOW_TOL
     emit(res)
     if not delta <= WINDOW_TOL:
         raise AssertionError(f"ring window vs packed clip |Δp| {delta} > {WINDOW_TOL}")
     # frames per K1 launch on the main path: clip_size × clips per batch
-    return launches, pipe.clip_size * round(len(scored) / batches)
+    return res, pipe.clip_size * round(res["clips_scored"] / res["batches_dispatched"])
 
 
-# -- phase 6: K2 --------------------------------------------------------------
+# -- phase 6: the YuNet detector ----------------------------------------------
+
+# the detector on the card against the same module on the CPU, float32 and
+# TF32 off: head outputs (sigmoids, box and landmark offsets of order one)
+# within 1e-4 — cuDNN and the CPU sum the convolutions in other orders;
+# rows within 1e-3 px and 1e-5 in score, and the same rows kept
+DET_TOLS = {"head_abs": 1e-4, "rows_px": 1e-3, "rows_score": 1e-5}
+
+
+def wall_ms(fn, n: int) -> float:
+    """Median host wall time (ms) of ``fn()`` over ``n`` calls after one
+    warm-up; ``fn`` returns host data, so each call ends when its work has."""
+    fn()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    return 1000.0 * float(np.median(ts))
+
+
+def phase_detector(dev, tmp_dir, smi):
+    """The port's YuNet on the YuNet-shaped graph (``stdd_torch/utils/
+    onnx_writer.py``: yunet_n's layout, random weights from SEED, written as
+    ONNX and read back through the port's reader) → the detector on the
+    card."""
+    path = write_onnx(yunet_shaped_graph(SEED), os.path.join(tmp_dir, "yunet_shaped.onnx"))
+    det = YuNet(path, device=dev)
+    ref = YuNet(path, device="cpu")
+    full = [Scene((1080, 1920), n_faces=1, seed=SEED + k).frame(10 * k) for k in range(4)]
+    small = np.stack([resize_linear_u8(torch.from_numpy(f), 320, 320).numpy() for f in full])
+    blob = torch.from_numpy(small).float().permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        heads_card = {k: v.cpu() for k, v in det.module(blob[:1].to(dev)).items()}
+        heads_cpu = ref.module(blob[:1])
+        _, scores, _ = ref._decode_one(heads_cpu, 320, 320)
+    head_err = max(float((heads_card[k] - heads_cpu[k]).abs().max()) for k in heads_cpu)
+    dets, mask = det.detect(small)
+    dets_cpu, mask_cpu = ref.detect(small)
+    same_rows = bool((mask == mask_cpu).all())
+    px_err = score_err = 0.0
+    if same_rows:
+        d, r = dets[mask], dets_cpu[mask_cpu]
+        px_err = float(np.abs(d[:, :14] - r[:, :14]).max())
+        score_err = float(np.abs(d[:, 14] - r[:, 14]).max())
+    # the NMS alone, on frame 0's decoded anchors: one copy to the host and
+    # the loop there, as the detector runs it
+    x = blob.to(dev)
+    torch.cuda.synchronize()                  # x was copied on the default stream
+    with torch.cuda.stream(det.stream), torch.inference_mode():
+        boxes, sc, _ = det._decode_one(det.module(x[:1]), 320, 320)
+        torch.cuda.current_stream().synchronize()
+    host = (boxes.cpu(), sc.cpu())
+    args = (det.nms_threshold, det.conf_threshold, det.top_k)
+    _, ok_h = nms_fixed(*host, *args)
+    # what TF32 would change: the app runs the detector with it off (as
+    # here); the heads' distance from the CPU and detect's time with it on
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.inference_mode():
+            heads_tf32 = {k: v.cpu() for k, v in det.module(blob[:1].to(dev)).items()}
+        tf32_err = max(float((heads_tf32[k] - heads_cpu[k]).abs().max()) for k in heads_cpu)
+        tf32_ms = wall_ms(lambda: det.detect(small[:1]), 20)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+    def forward(b):
+        with torch.inference_mode():
+            for i in range(b):
+                det._decode_one(det.module(x[i:i + 1]), 320, 320)
+
+    res = {"phase": "detector", "card": smi, "weights": "synthetic",
+           "graph": "yunet_shaped_graph (yunet_n layout, random weights, seed %d)" % SEED,
+           "anchors": int(sc.numel()), "anchors_over_conf": int((scores > 0.6).sum()),
+           "kept": [int(m.sum()) for m in mask],
+           "head_max_abs_err_card_vs_cpu": head_err, "same_rows_card_vs_cpu": same_rows,
+           "rows_px_err": px_err, "rows_score_err": score_err, "tol": DET_TOLS,
+           "detect_b1_ms": wall_ms(lambda: det.detect(small[:1]), 20),
+           "detect_b4_ms": wall_ms(lambda: det.detect(small), 10),
+           "forward_decode_device_b1_ms": event_ms(lambda: forward(1), 10, stream=det.stream),
+           "forward_decode_device_b4_ms": event_ms(lambda: forward(4), 5, stream=det.stream),
+           "nms_host_ms": wall_ms(lambda: nms_fixed(*host, *args), 20),
+           "nms_kept": int(ok_h.sum()),
+           "tf32_head_max_abs_err_vs_cpu": tf32_err, "tf32_detect_b1_ms": tf32_ms,
+           "resize_device_1080p_ms": event_ms(
+               lambda: resize_linear_u8(torch.from_numpy(full[0]).to(dev), 320, 320), 10,
+               stream=det.stream),
+           "detect_scaled_1080p_ms": wall_ms(lambda: [detect_scaled(det, f) for f in full],
+                                             5) / len(full)}
+    emit(res)
+    if not (head_err <= DET_TOLS["head_abs"] and same_rows and px_err <= DET_TOLS["rows_px"]
+            and score_err <= DET_TOLS["rows_score"]):
+        raise AssertionError(f"detector card vs CPU: heads {head_err}, same rows {same_rows}, "
+                             f"px {px_err}, score {score_err} (tol {DET_TOLS})")
+    if not (res["anchors_over_conf"] >= 10 and min(res["kept"]) >= 1):
+        raise AssertionError(f"the synthetic detector is vacuous: {res['anchors_over_conf']} "
+                             f"anchors over 0.6, kept {res['kept']}")
+    return det
+
+
+# -- phase 7: the engine with the detector on the card ---------------------------
+
+class DeviceSpans:
+    """Device-time intervals of work on several streams, from CUDA events
+    recorded on each stream before and after it; ``ms()`` gives them in ms
+    from the base event, and ``overlap_ms`` the time two sets share."""
+
+    def __init__(self):
+        torch.cuda.synchronize()
+        self.base = torch.cuda.Event(enable_timing=True)
+        self.base.record()
+        self.spans = {}
+
+    @staticmethod
+    def record():
+        """An event on the current stream."""
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def add(self, key, start, end):
+        self.spans.setdefault(key, []).append((start, end))
+
+    def ms(self, key):
+        torch.cuda.synchronize()
+        return [(self.base.elapsed_time(a), self.base.elapsed_time(b))
+                for a, b in self.spans.get(key, [])]
+
+    def overlap_ms(self, a, b) -> float:
+        others = self.ms(b)
+        total = 0.0
+        for s, e in self.ms(a):
+            cuts = sorted((max(s, s2), min(e, e2)) for s2, e2 in others if s2 < e and e2 > s)
+            end = s
+            for c0, c1 in cuts:                     # union of the cuts within [s, e]
+                c0 = max(c0, end)
+                if c1 > c0:
+                    total += c1 - c0
+                    end = c1
+        return total
+
+
+def detector_fn(det, scene, detect_every, spans=None):
+    """The engine's detector for the synthetic weights: ``detect_scaled``
+    runs on every frame it is given, for its device cost, and the scene
+    oracle's rows come back, so tracking stays meaningful. With ``spans``
+    each detection's device interval on the detector's stream is kept."""
+    oracle = scene.oracle(detect_every)
+
+    def detect_fn(frame):
+        if spans is not None:
+            with torch.cuda.stream(det.stream):
+                start = spans.record()
+        detect_scaled(det, frame)
+        if spans is not None:
+            with torch.cuda.stream(det.stream):
+                spans.add("detect", start, spans.record())
+        return oracle(frame)
+
+    return detect_fn
+
+
+def phase_engine_detector(scorer, det, smi, scene, frames, engine_res):
+    """The ``engine`` phase's operating point with the detector's device
+    cost on the path: fps and window latency beside the oracle-only run of
+    the same call, and how much of the detections' device time overlapped
+    the scorer's (the detector runs on its own CUDA stream)."""
+    spans = DeviceSpans()
+    orig = scorer._score_impl
+
+    def timed(*a, **k):
+        start = spans.record()
+        out = orig(*a, **k)
+        spans.add("score", start, spans.record())
+        return out
+
+    scorer._score_impl = timed
+    try:
+        res = drive_engine(scorer, frames, detector_fn(det, scene, ENGINE_PIPE["detect_every"],
+                                                       spans))
+    finally:
+        del scorer._score_impl
+    det_ms = [e - s for s, e in spans.ms("detect")]
+    overlap = spans.overlap_ms("detect", "score")
+    out = {"phase": "engine_detector", "card": smi, "detections_real": False,
+           "detector": "detect_scaled on the card (synthetic weights), oracle rows returned",
+           **res, "oracle_fps": engine_res["fps"],
+           "oracle_window_latency_p50_ms": engine_res["window_latency_p50_ms"],
+           "oracle_window_latency_p95_ms": engine_res["window_latency_p95_ms"],
+           "fps_ratio_vs_oracle": res["fps"] / engine_res["fps"],
+           "detections": len(det_ms), "detect_device_ms_median": float(np.median(det_ms)),
+           "score_device_ms_median": float(np.median([e - s for s, e in spans.ms("score")])),
+           "detect_overlapping_score_ms": overlap,
+           "detect_overlap_share": overlap / max(sum(det_ms), 1e-9)}
+    emit(out)
+    return out
+
+
+# -- phase 8: multi-stream serving ----------------------------------------------
+
+# a stream's scores through the server against the same frames through a
+# standalone engine: the same clips in batches of other composition, whose
+# bf16 convolutions may take other cuDNN algorithms; bounded by the
+# bf16-vs-float32 drift bound of the scorer phase
+SERVER_TOL = 5e-4
+SERVER_FRAMES = 150
+
+
+def run_server(scorer, smi, pipe, scenes, frames, n, wait):
+    """n calls through one ``MultiStreamServer`` (``max_batch_wait_frames``
+    = ``wait``), stepped round-robin from one thread after its warm-up; K1's
+    count is zeroed just before and read just after. Each dispatched batch
+    records how many calls its clips came from."""
+    server = MultiStreamServer(scorer, cfg=pipe, max_batch_wait_frames=wait, **ENGINE_KW)
+    try:
+        server.warmup()
+        sids = [server.add_stream(scenes[k].oracle(pipe.detect_every)) for k in range(n)]
+        got = {sid: [] for sid in sids}
+        group = server._root._group
+        owners_per_batch = []
+        dispatch = group._dispatch
+
+        def spy():
+            with group._state_lock:
+                batch = group.pending[:group.cfg.batch_clips]
+                if batch:
+                    owners_per_batch.append(len({id(c.owner) for c in batch}))
+                dispatch()
+
+        group._dispatch = spy
+        seq0 = group._next_seq
+        warp_affine.launches = 0                       # the server's run starts here
+        t0 = time.perf_counter()
+        for i in range(SERVER_FRAMES):
+            for k, sid in enumerate(sids):
+                got[sid] += server.step(sid, frames[k][i])
+        for sid in sids:
+            got[sid] += server.flush(sid)
+        dt = time.perf_counter() - t0
+        launches = warp_affine.launches                # ... and ends here
+        batches = group._next_seq - seq0
+        scored = [x for sid in sids for x in got[sid]]
+        res = {"phase": "server", "card": smi, "streams": n,
+               "max_batch_wait_frames": wait,
+               **engine_numbers(server._root, scored, dt, n * SERVER_FRAMES, launches,
+                                batches)}
+    finally:
+        server.close()
+    res.update({"frames_per_stream": SERVER_FRAMES,
+                "clips_per_batch": res["clips_scored"] / res["batches_dispatched"],
+                "batches_mixing_calls": sum(k > 1 for k in owners_per_batch)})
+    return res, [got[sid] for sid in sids]
+
+
+def phase_server(scorer, smi) -> dict:
+    """``MultiStreamServer`` with 2, then 4 concurrent calls, each a
+    1080p scene of its own seed with one face, at the engine phase's
+    operating point: windows shipped at once (``max_batch_wait_frames`` 0,
+    the ring-mode default: one clip a batch), then held for up to one
+    round of the calls (n group steps), so the calls' windows, which fall
+    due on the same frame, share batches and their scores are routed back
+    by owner."""
+    pipe = PipelineConfig(**ENGINE_PIPE)
+    scenes = [Scene((1080, 1920), n_faces=1, seed=SEED + 10 + k) for k in range(4)]
+    frames = [[s.frame(i) for i in range(SERVER_FRAMES)] for s in scenes]
+    solo = []
+    for k, s in enumerate(scenes):
+        eng = StreamingEngine(scorer, s.oracle(pipe.detect_every), cfg=pipe, **ENGINE_KW)
+        try:
+            out = []
+            for f in frames[k]:
+                out += eng.step(f)
+            out += eng.flush()
+        finally:
+            eng.close()
+        solo.append(out)
+    results = {}
+    for wait in ("stride", "round"):
+        for n in (2, 4):
+            res, got = run_server(scorer, smi, pipe, scenes, frames, n,
+                                  n if wait == "round" else wait)
+            dp = 0.0
+            for k, have in enumerate(got):
+                want = solo[k]
+                if [t for t, _ in have] != [t for t, _ in want]:
+                    raise AssertionError(f"server, {n} streams, wait {wait}: stream {k} scored "
+                                         "other clips than its standalone engine")
+                dp = max(dp, float(np.abs(np.subtract([p for _, p in have],
+                                                      [p for _, p in want])).max()))
+            res.update({"vs_standalone_max_dp": dp, "tol": SERVER_TOL})
+            emit(res)
+            if not dp <= SERVER_TOL:
+                raise AssertionError(f"server, {n} streams, wait {wait}: |Δp| vs standalone "
+                                     f"{dp} > {SERVER_TOL}")
+            if wait == "round" and not (res["clips_per_batch"] > 1
+                                        and res["batches_mixing_calls"] > 0):
+                raise AssertionError(f"server, {n} streams held a round: no batch mixed calls "
+                                     f"({res['clips_per_batch']} clips a batch)")
+            results[(n, wait)] = res
+    return results
+
+
+# -- phase 9: the live app -------------------------------------------------------
+
+APP_FRAMES = 180
+
+
+def phase_app(scorer, det, smi, scene, frames) -> dict:
+    """``RealtimeApp`` + ``run_loop``, headless, over the scene's frames,
+    with the engine_detector phase's detector."""
+    pipe = PipelineConfig(**ENGINE_PIPE)
+    eng = StreamingEngine(scorer, AsyncDetector(detector_fn(det, scene, pipe.detect_every)),
+                          cfg=pipe, **ENGINE_KW)
+    app = RealtimeApp(eng, threshold=pipe.threshold)
+    try:
+        eng.warmup()
+        seq0 = eng._group._next_seq
+        warp_affine.launches = 0                       # the app's run starts here
+        t0 = time.perf_counter()
+        ready, fake = run_loop(app, iter(frames[:APP_FRAMES]))
+        dt = time.perf_counter() - t0
+        launches = warp_affine.launches                # ... and ends here
+        batches = eng._group._next_seq - seq0
+    finally:
+        eng.close()
+    scores = {int(t): [float(p) for p in s] for t, s in app.running_scores.items()}
+    res = {"phase": "app", "card": smi, "detections_real": False, "frames": APP_FRAMES,
+           "fps": APP_FRAMES / dt, "meeting_ready": bool(ready), "meeting_fake": bool(fake),
+           "scored_tracks": scores, "k1_launches": launches, "batches_dispatched": batches,
+           "frames_seen": app.frames_seen}
+    emit(res)
+    flat = [p for s in scores.values() for p in s]
+    if not (ready and flat and np.isfinite(flat).all() and launches == batches > 0):
+        raise AssertionError(f"app: ready {ready}, scores {scores}, K1 launches {launches}, "
+                             f"batches {batches}")
+    return res
+
+
+# -- phase 10: K2 --------------------------------------------------------------
 
 def k2_operands(rng, B, T, H, W, cin, co, tk, project, dev, dtype):
     """x [B, Cin, T, H, W] (channels_last_3d, ``dtype``) and the BN-folded
@@ -747,7 +1128,7 @@ def phase_k2_time(dev) -> dict:
     return timings
 
 
-# -- phase 7: the fused-s2 scorer from a checkpoint ----------------------------
+# -- phase 11: the fused-s2 scorer from a checkpoint ----------------------------
 
 def phase_fused_scorer(dev, scorer, ckpt_dir: str):
     """Serve the checkpoint of ``scorer``'s weights (random init with random
@@ -818,7 +1199,7 @@ def phase_fused_scorer(dev, scorer, ckpt_dir: str):
     return f16
 
 
-# -- phase 8: dense windows of one track through the fused scorer --------------
+# -- phase 12: dense windows of one track through the fused scorer --------------
 
 def phase_dense(fused16, unfused16, smi) -> int:
     """Every stride-1 window of one 300-frame track at batch 8, as the
@@ -885,6 +1266,8 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card")
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    # float32 without TF32, as the app runs the detector
+    # (stdd_torch/runtime/app.py main); the scorer's float32 checks too
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -916,9 +1299,18 @@ def main() -> None:
     k2_err = phase_k2_check(dev)
     k2_timings = phase_k2_time(dev)
     scorer = phase_scorer(dev)
-    k1_launches, n_main = phase_engine(scorer, smi)
-    with tempfile.TemporaryDirectory() as ckpt_dir:
-        fused16 = phase_fused_scorer(dev, scorer, ckpt_dir)
+    scene = Scene((1080, 1920), n_faces=1, seed=SEED)
+    # rendered before any clock starts: making data is set-up
+    frames = [scene.frame(i) for i in range(ENGINE_WARM + ENGINE_FRAMES)]
+    engine_res, n_main = phase_engine(scorer, smi, scene, frames)
+    k1_launches = engine_res["k1_launches"]
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        det = phase_detector(dev, tmp_dir, smi)
+        phase_engine_detector(scorer, det, smi, scene, frames, engine_res)
+        phase_server(scorer, smi)
+        phase_app(scorer, det, smi, scene, frames)
+        del frames, det
+        fused16 = phase_fused_scorer(dev, scorer, tmp_dir)
     k2_launches = phase_dense(fused16, scorer, smi)
 
     # each kernel's numbers at the shape its path launched it with: K1 at

@@ -1,7 +1,7 @@
 """Configuration dataclasses of the live scoring path.
 
-Own copies of ``stdd_tpu.config.I3DConfig`` and ``PipelineConfig`` (same
-fields, same defaults), so a configuration moves between the two packages
+Own copies of ``stdd_tpu.config.I3DConfig``, ``DetectorConfig`` and
+``PipelineConfig`` (same fields, same defaults), so a configuration moves between the two packages
 field for field. The port's I3D computes the plain convolutions whatever
 ``s2d_stem``/``stem_t2`` say (both are exact TPU re-layouts of the same
 math); ``fused_s2`` runs s2 through K2 (``ops/bottleneck.py``);
@@ -42,6 +42,20 @@ class I3DConfig:
     fused_s2: bool = False
     int8_stages: Tuple[str, ...] = ()
     stop_point: int = 5
+
+
+@dataclass(frozen=True)
+class DetectorConfig:
+    """YuNet face detector (reference: preprocessing/yunet/yunet.py:47):
+    the settings :class:`stdd_torch.models.yunet.YuNet` and its
+    ``detect_scaled`` take."""
+
+    input_w: int = 320
+    input_h: int = 320
+    conf_threshold: float = 0.6
+    nms_threshold: float = 0.3
+    top_k: int = 128              # fixed-capacity padded detections
+    max_faces: int = 16           # read by neither package; kept field for field
 
 
 @dataclass(frozen=True)

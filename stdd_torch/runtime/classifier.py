@@ -136,17 +136,30 @@ class ClipScorer:
         shapes) raises. Without ``cfg`` the geometry comes from the
         trainer's ``{path}.json`` sidecar (clip_size, crop_size,
         temporal_only) when there is one, so a non-224 checkpoint is never
-        served at 224. ``stdd_tpu/runtime/classifier.py:264``."""
+        served at 224; with no sidecar the defaults hold, as in
+        ``stdd_tpu/runtime/classifier.py:264``. A sidecar that is not JSON,
+        or lacks ``clip_size`` or ``crop_size`` (the trainer always writes
+        both), raises a ``ValueError`` naming it instead of serving a
+        guessed geometry."""
         if cfg is None:
             cfg = I3DConfig()
+            sidecar = path + ".json"
             try:
-                with open(path + ".json") as f:
+                with open(sidecar) as f:
                     meta = json.load(f)
-                cfg = I3DConfig(num_frames=int(meta.get("clip_size", cfg.num_frames)),
-                                crop_size=int(meta.get("crop_size", cfg.crop_size)),
-                                temporal_only=bool(meta.get("temporal_only", False)))
             except FileNotFoundError:
-                pass
+                meta = None
+            except json.JSONDecodeError as e:
+                raise ValueError(f"checkpoint sidecar {sidecar} is not valid JSON: {e}") from e
+            if meta is not None:
+                missing = [k for k in ("clip_size", "crop_size")
+                           if not isinstance(meta, dict) or k not in meta]
+                if missing:
+                    raise ValueError(f"checkpoint sidecar {sidecar} lacks {missing}: "
+                                     "the geometry to serve the checkpoint at is unknown")
+                cfg = I3DConfig(num_frames=int(meta["clip_size"]),
+                                crop_size=int(meta["crop_size"]),
+                                temporal_only=bool(meta.get("temporal_only", False)))
         with torch.device("meta"):
             model = I3D(cfg)                       # refuses what the port lacks
         # the merge reads the target's shapes only: zero-stride views, no data

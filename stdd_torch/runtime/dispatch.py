@@ -5,14 +5,19 @@ Port of ``stdd_tpu/runtime/dispatch.py``. This module owns:
 - the pending-clip pool and its batching cadence (``max_batch_wait_frames``),
 - the two background dispatch lanes (packing + host→device copy + scoring
   launch off the stepping thread, overlapping decode/track with scoring),
-- the strict-FIFO harvest cursor that hands each clip's score to the engine,
+- the strict-FIFO harvest cursor that routes each clip's score to the engine
+  that produced it,
 - the ring kernels/uploader shared by every device-resident track ring.
 
 Per-stream state (tracker, buffers, rings, verdict accumulation) stays in
-:class:`~stdd_torch.runtime.engine.StreamingEngine`, which owns its group;
-a failed batch's error is stored on the engine and raised at its next
-``step()``/``flush()``. The JAX group can be shared by several engines
-(``MultiStreamServer``); that is not ported yet.
+:class:`~stdd_torch.runtime.engine.StreamingEngine`. Several engines can
+share one group (``StreamingEngine(share_dispatch_from=...)``, as
+:class:`~stdd_torch.runtime.server.MultiStreamServer` does), so device
+batches fill across call streams: each clip carries the engine that
+produced it (``clip.owner``) and that engine's reset generation, its score
+is routed back there, and a failed batch's error goes only to the streams
+whose clips it held (``owner._worker_error``, raised at their next
+``step()``/``flush()``).
 
 Reference analogue: the batch_clips+AMP flush loop of ``TEST2.py:393`` —
 an async pipelined dispatcher, because a CUDA launch is asynchronous and
@@ -41,6 +46,8 @@ _CLOSE = object()
 class _PendingClip:
     tid: int
     entries: List[Any]
+    owner: Any = None             # engine whose stream produced this clip
+    owner_gen: int = 0            # owner's reset generation at enqueue time
     tick: int = 0                 # group step counter at enqueue (batch-wait age)
     t_enq: float = 0.0            # perf_counter at enqueue (TEST2.py:316 latency)
     # device-ring mode: (dev_window [T,...] u8 on the card, boxes [T,4],
@@ -49,18 +56,20 @@ class _PendingClip:
 
 
 class DispatchGroup:
-    """Pack → upload → score → harvest pipeline of one engine. The engine
-    enqueues clips and calls :meth:`tick_and_dispatch` / :meth:`harvest`;
-    results land in the engine's ``_ready`` list."""
+    """Pack → upload → score → harvest pipeline shared by one or more
+    engines. Engines enqueue clips and call :meth:`tick_and_dispatch` /
+    :meth:`harvest`; results land in each clip owner's ``_ready`` list."""
 
     def __init__(self, scorer, cfg, crop_buffer: int, device_resident: bool,
-                 max_batch_wait_frames, engine):
+                 max_batch_wait_frames, default_owner):
         self.scorer = scorer
         self.cfg = cfg
         self.crop_buffer = crop_buffer
         self.device_resident = device_resident
         self.max_batch_wait_frames = max_batch_wait_frames
-        self.engine = engine
+        # errors of ownerless batches route here (engine.step always stamps
+        # owners; this is a guard rail)
+        self.default_owner = default_owner
 
         self.pending: List[_PendingClip] = []
         self._tick = 0
@@ -74,9 +83,10 @@ class DispatchGroup:
         self._next_seq = 0
         self._next_harvest_seq = 0
 
-        # pending / seq / tick are touched only by the stepping thread;
-        # .inflight and the harvest are shared with the dispatch lanes
         self._lock = threading.Lock()          # guards .inflight
+        # guards pending / seq / tick when streams of a shared group step
+        # from different threads (RLock: _dispatch runs under it)
+        self._state_lock = threading.RLock()
         self._harvest_lock = threading.Lock()  # serializes _harvest
         self._zero_lock = threading.Lock()     # one-time _zero_window build
         # one-time ring kernels/uploader build: the stepping thread's first
@@ -150,11 +160,19 @@ class DispatchGroup:
         self._dispatch_q.join()
         with self._lock:
             self.inflight = []
-        self.pending = []
-        self._tick = 0
+        with self._state_lock:
+            self.pending = []
+            self._tick = 0
         self.clip_latencies = collections.deque(maxlen=10000)
         self._next_seq = 0
         self._next_harvest_seq = 0
+
+    def drop_owner(self, engine) -> None:
+        """A secondary engine's reset: drop its queued-but-undispatched
+        clips; peers are undisturbed. Its clips already in flight are
+        discarded at harvest by the owner-generation check."""
+        with self._state_lock:
+            self.pending = [c for c in self.pending if c.owner is not engine]
 
     def close(self) -> None:
         """Shut down the two dispatch lanes (a parked daemon lane pins the
@@ -169,8 +187,9 @@ class DispatchGroup:
     # -- enqueue / dispatch --------------------------------------------------
 
     def enqueue(self, clip: _PendingClip) -> None:
-        clip.tick = self._tick
-        self.pending.append(clip)
+        with self._state_lock:
+            clip.tick = self._tick
+            self.pending.append(clip)
 
     def tick_and_dispatch(self) -> None:
         """Advance the group step counter and ship every due batch: full
@@ -178,21 +197,23 @@ class DispatchGroup:
         clip has waited ``max_batch_wait_frames`` group steps (each clip
         carries its enqueue tick, so leftovers keep their age across partial
         dispatches)."""
-        self._tick += 1
-        wait = self.max_batch_wait_frames
-        while len(self.pending) >= self.cfg.batch_clips or (
-            self.pending
-            and wait is not None
-            and self._tick - self.pending[0].tick >= wait
-        ):
-            self._dispatch()
+        with self._state_lock:
+            self._tick += 1
+            wait = self.max_batch_wait_frames
+            while len(self.pending) >= self.cfg.batch_clips or (
+                self.pending
+                and wait is not None
+                and self._tick - self.pending[0].tick >= wait
+            ):
+                self._dispatch()
 
     def drain_snapshot(self) -> int:
         """Dispatch everything queued and return the sequence fence: batches
         with seq < fence cover every clip enqueued before this call."""
-        while self.pending:
-            self._dispatch()
-        return self._next_seq
+        with self._state_lock:
+            while self.pending:
+                self._dispatch()
+            return self._next_seq
 
     def _dispatch(self) -> None:
         """Hand the next batch to a dispatch lane WITHOUT blocking, so
@@ -201,14 +222,15 @@ class DispatchGroup:
         TEST2.py:393)."""
         import time
 
-        batch = self.pending[: self.cfg.batch_clips]
-        self.pending = self.pending[self.cfg.batch_clips:]
-        if not batch:
-            return
-        # packing (downscale + zero-pad of B*T crops) happens on the
-        # worker thread too, so the stepping thread only enqueues
-        seq = self._next_seq
-        self._next_seq += 1
+        with self._state_lock:
+            batch = self.pending[: self.cfg.batch_clips]
+            self.pending = self.pending[self.cfg.batch_clips:]
+            if not batch:
+                return
+            # packing (downscale + zero-pad of B*T crops) happens on the
+            # worker thread too, so the stepping thread only enqueues
+            seq = self._next_seq
+            self._next_seq += 1
         self._dispatch_q.put((seq, batch, time.perf_counter()))
 
     def _cap_for(self, n: int) -> int:
@@ -303,28 +325,34 @@ class DispatchGroup:
                     self.inflight.append((seq, batch, dev, t0))
                 if eager:
                     # route now if this batch is the FIFO head (strict seq
-                    # order is still enforced inside harvest); the engine
+                    # order is still enforced inside harvest); the owner
                     # sees the score at its next step() without an extra
                     # tick. Own try: the batch is already in `inflight`, so
                     # the outer handler's seq sentinel must NOT fire for a
                     # routing failure — a duplicate seq entry behind the
                     # advanced cursor would wedge the FIFO head check.
+                    # A batch's fetch or routing failure is caught inside
+                    # _harvest_locked and goes to that batch's streams (the
+                    # FIFO head may belong to another stream than the batch
+                    # this lane shipped); what escapes here is
+                    # infrastructure, so it goes to the default stream.
                     try:
                         self.harvest(block=False)
                     except Exception as exc:
                         import traceback
 
                         traceback.print_exc()
-                        self.engine._worker_error = exc
+                        self.default_owner._worker_error = exc
             except Exception as exc:
                 # a dead worker would deadlock every later _dispatch_q.join();
                 # keep the thread alive, drop the batch (a None sentinel so
                 # the FIFO harvest cursor still advances), and surface the
-                # error at the engine's next step()
+                # error ONLY to the streams whose clips were in the failed
+                # batch: a peer call's step() must not raise for it
                 import traceback
 
                 traceback.print_exc()
-                self.engine._worker_error = exc
+                self._route_error(batch, exc)
                 with self._lock:
                     self.inflight.append((item[0], [], None, item[2]))
             finally:
@@ -332,12 +360,18 @@ class DispatchGroup:
 
     # -- harvest ------------------------------------------------------------
 
+    def _route_error(self, batch: List[_PendingClip], exc: BaseException) -> None:
+        """Hand a failed batch's error to every stream that owned one of its
+        clips (the default stream when it held none)."""
+        for owner in {c.owner or self.default_owner for c in batch} or {self.default_owner}:
+            owner._worker_error = exc
+
     def harvest(self, block: bool) -> None:
-        """Collect finished device batches and hand each clip's score to the
-        engine; with ``block=False`` only batches whose results are already
-        materialized are taken (plus forced takes when the pipeline depth
-        exceeds 2, to bound memory). The engine reads its results from
-        ``engine._take_ready``."""
+        """Collect finished device batches and route each clip's score to
+        the engine that produced it (``clip.owner``); with ``block=False``
+        only batches whose results are already materialized are taken (plus
+        forced takes when the pipeline depth exceeds 2, to bound memory).
+        Each engine reads its results from ``engine._take_ready``."""
         if not self._harvest_lock.acquire(blocking=block):
             # another thread (the stepping thread or a dispatch lane) is
             # already harvesting; its pass routes these results too
@@ -351,22 +385,27 @@ class DispatchGroup:
         """Blocking harvest of every batch dispatched before ``target_seq``
         (exclusive). The target check happens under ``_harvest_lock``: the
         cursor only advances after a batch's scores are fully routed, so
-        once the target is observed every score up to it has landed in the
-        engine's _ready/track_clip_scores."""
+        once the target is observed every score up to it has landed in its
+        owner's _ready/track_clip_scores; batches peers dispatch meanwhile
+        do not extend the wait."""
         import time
 
         while True:
             with self._harvest_lock:
-                self._harvest_locked(block=True)
+                self._harvest_locked(block=True, until_seq=target_seq)
                 done = self._next_harvest_seq >= target_seq
             if done:
                 return
             time.sleep(0.002)   # head batch is still packing on a worker
 
-    def _harvest_locked(self, block: bool) -> None:
+    def _harvest_locked(self, block: bool, until_seq: Optional[int] = None) -> None:
         import time
 
         while True:
+            if until_seq is not None and self._next_harvest_seq >= until_seq:
+                # a flushing stream's snapshotted target: batches peers
+                # dispatched after the snapshot are not its to wait for
+                break
             with self._lock:
                 entries = sorted(self.inflight, key=lambda e: e[0])
             if not entries:
@@ -405,7 +444,7 @@ class DispatchGroup:
                 with self._lock:
                     if entry in self.inflight:
                         self.inflight.remove(entry)
-                self.engine._worker_error = exc
+                self._route_error(batch, exc)
                 self._next_harvest_seq += 1
                 continue
             now = time.perf_counter()
@@ -414,22 +453,25 @@ class DispatchGroup:
                     self.inflight.remove(entry)
                 except ValueError:
                     continue
-            eng = self.engine
             try:
                 for bi, clip in enumerate(batch):
                     # per-clip enqueue→scored latency, the reference's
                     # clip_enqueue_t/clip_infer_t accounting (TEST2.py:316,440)
                     self.clip_latencies.append(now - (clip.t_enq or t0))
+                    owner = clip.owner or self.default_owner
+                    if owner._gen != clip.owner_gen:
+                        continue  # the owner's stream was reset: stale score
                     p = float(probs[bi])
-                    eng.track_clip_scores[clip.tid].append(p)
-                    eng.hysteresis.update(clip.tid, p)
-                    with eng._ready_lock:
-                        eng._ready.append((clip.tid, p))
+                    owner.track_clip_scores[clip.tid].append(p)
+                    owner.hysteresis.update(clip.tid, p)
+                    with owner._ready_lock:
+                        owner._ready.append((clip.tid, p))
             except Exception as exc:
-                # surface a routing failure at the engine's next step() and
-                # keep the cursor advancing exactly like the fetch-failure
-                # path
-                eng._worker_error = exc
+                # a routing failure belongs to THIS batch's streams (the
+                # caller may be a lane that shipped another batch): surface
+                # it to them and keep the cursor advancing exactly like the
+                # fetch-failure path
+                self._route_error(batch, exc)
             # advance the cursor only AFTER routing: _harvest_until's target
             # check (under _harvest_lock) must imply the scores have landed
             self._next_harvest_seq += 1

@@ -10,8 +10,9 @@ device plane (per batch, CUDA):  batched align (K1) + normalize + I3D + sigmoid
                                  (:class:`~stdd_torch.runtime.classifier.ClipScorer`)
 
 The device-side pipeline (pending pool, dispatch lanes, FIFO harvest, ring
-kernels) lives in :class:`~stdd_torch.runtime.dispatch.DispatchGroup`, one
-per engine; this module keeps the PER-STREAM state machine: tracking, landmark caching,
+kernels) lives in :class:`~stdd_torch.runtime.dispatch.DispatchGroup`, which
+several engines may share (``share_dispatch_from``, the multi-call server);
+this module keeps the PER-STREAM state machine: tracking, landmark caching,
 quality gating, per-track rings/buffers, and verdict accumulation.
 
 Clips are padded to ``[capacity, clip_size, crop_buffer, crop_buffer, 3]``
@@ -27,8 +28,8 @@ detector already emits the same 5 landmark points per detection
 lm5 as box-relative offsets and translates them with the track between
 detections — the same caching cadence the reference uses for its mesh
 (mesh_every, TEST2.py:577-588). The detector is any ``frame -> [N,15]``
-callable (YuNet rows); this slice is driven by a scene oracle
-(``stdd_torch/eval/scene.py``).
+callable of YuNet rows: ``models/yunet.py`` through ``detect_scaled``, or
+the scene oracle of ``eval/scene.py``.
 """
 
 from __future__ import annotations
@@ -125,6 +126,7 @@ class StreamingEngine:
         max_batch_wait_frames="stride",
         min_det_area: float = 0.0,
         exclude_bottom_frac: float = 0.0,
+        share_dispatch_from: Optional["StreamingEngine"] = None,
         device_resident: Optional[bool] = None,
         max_rings: int = 32,
         stagger_windows: bool = False,
@@ -219,25 +221,82 @@ class StreamingEngine:
         # extra detection filters (TEST2.py:516-529)
         self.min_det_area = min_det_area
         self.exclude_bottom_frac = exclude_bottom_frac
-        self._group = DispatchGroup(
-            scorer, self.cfg, crop_buffer, self.device_resident,
-            max_batch_wait_frames, engine=self,
-        )
-        # guards _ready against a dispatch lane's harvest racing
-        # _take_ready's swap
+        # cross-stream batching: engines serving concurrent calls can share
+        # ONE dispatch group (pending pool + dispatch lanes + in-flight set)
+        # so device batches fill across streams; each clip routes its result
+        # back to the engine that produced it (see MultiStreamServer)
+        if share_dispatch_from is None:
+            self._group = DispatchGroup(
+                scorer, self.cfg, crop_buffer, self.device_resident,
+                max_batch_wait_frames, default_owner=self,
+            )
+            self._is_group_root = True
+        else:
+            root = share_dispatch_from
+            if not getattr(root, "_is_group_root", False):
+                raise ValueError("share_dispatch_from must be a group-root engine")
+            if root.scorer is not self.scorer:
+                raise ValueError("shared-dispatch engines must share one scorer")
+            if (root.cfg.clip_size, root.crop_buffer) != (
+                self.cfg.clip_size, self.crop_buffer
+            ):
+                raise ValueError(
+                    "shared-dispatch engines must agree on clip_size and "
+                    "crop_buffer (batches are packed with the root's shapes)"
+                )
+            if root.device_resident != self.device_resident:
+                raise ValueError(
+                    "device_resident is group-level; batches can't mix "
+                    "ring windows with host-packed clips"
+                )
+            # batching cadence is a GROUP property: the root's value governs
+            # (the "stride" default means "inherit from the root")
+            if (
+                self._explicit_wait
+                and max_batch_wait_frames != root._group.max_batch_wait_frames
+            ):
+                raise ValueError(
+                    "max_batch_wait_frames is group-level; set it on the "
+                    f"root engine (root has {root._group.max_batch_wait_frames!r})"
+                )
+            self._group = root._group
+            self._is_group_root = False
+        # guards _ready against a peer thread's or a dispatch lane's harvest
+        # racing _take_ready's swap
         self._ready_lock = threading.Lock()
         self.reset()
 
-    @property
-    def clip_latencies(self) -> Deque[float]:
-        """Per-clip enqueue→scored seconds (the dispatch group's record)."""
-        return self._group.clip_latencies
+    # group-level pipeline state lives on the DispatchGroup; engines delegate
+    # reads so these names work on every stream of a shared group
+    # (_worker_error is deliberately PER-engine: a failed batch's error is
+    # routed to the streams that owned its clips, not to whoever harvests)
+    _GROUP_ATTRS = frozenset(
+        ("pending", "inflight", "clip_latencies", "max_batch_wait_frames",
+         "_tick", "_next_seq", "_next_harvest_seq",
+         "_lock", "_state_lock", "_harvest_lock", "_dispatch_q", "_workers")
+    )
+
+    def __getattr__(self, name):
+        if name in StreamingEngine._GROUP_ATTRS:
+            group = self.__dict__.get("_group")
+            if group is not None:
+                return getattr(group, name)
+        raise AttributeError(
+            f"{type(self).__name__!r} object has no attribute {name!r}"
+        )
 
     def reset(self) -> None:
-        # drain queued/in-flight work from the previous stream FIRST so late
-        # arrivals can't leak scores into the new stream
-        self._group.reset()
-        # set by the dispatch lanes when a batch fails; raised at step()
+        if self._is_group_root:
+            # drain queued/in-flight work from the previous stream FIRST so
+            # late arrivals can't leak scores into the new stream
+            self._group.reset()
+        else:
+            # a secondary engine's reset: drop its queued-but-undispatched
+            # clips, and bump its generation so its clips in flight are
+            # discarded at harvest; peers are undisturbed either way
+            self._group.drop_owner(self)
+        self._gen = getattr(self, "_gen", 0) + 1
+        # set when a batch holding this stream's clips fails; raised at step()
         self._worker_error: Optional[BaseException] = None
         self.tracker = ByteTracker(**self._track_kwargs)
         self.frame_idx = 0
@@ -266,15 +325,17 @@ class StreamingEngine:
 
     def close(self) -> None:
         """Release background resources: per-track rings, the detector's
-        worker (when it has a ``close``) and the dispatch lanes. Safe to
-        call more than once; the engine must not be stepped after."""
+        worker (when it has a ``close``) and, if this engine owns its
+        dispatch group, the group's lanes. Safe to call more than once; the
+        engine must not be stepped after."""
         self.rings.clear()
         if hasattr(self.detect_fn, "close"):
             try:
                 self.detect_fn.close()
             except Exception:
                 pass
-        self._group.close()
+        if self._is_group_root:
+            self._group.close()
 
     # -- per-frame host path -------------------------------------------------
 
@@ -387,8 +448,16 @@ class StreamingEngine:
                         buf.clear()
             if ring is not None:
                 # crop lands on the card now (async); entries keep only the
-                # geometry so windows never re-upload pixels
-                ring.push(crop, big_box, lm5_local)
+                # geometry so windows never re-upload pixels. A failed push
+                # leaves the ring a frame short: drop it and restart this
+                # track's windowing clean (the next frame builds a new ring)
+                # instead of ending the whole stream
+                try:
+                    ring.push(crop, big_box, lm5_local)
+                except RuntimeError:
+                    self._drop_ring(tid)
+                    buf.clear()
+                    continue
                 buf.append(_FrameEntry(None, big_box, lm5_local))
             else:
                 buf.append(_FrameEntry(crop, big_box, lm5_local))
@@ -402,12 +471,18 @@ class StreamingEngine:
                 # its buffer entries and ships through the host-packed path
                 emit_ring = self.rings.get(tid) if self.device_resident else None
                 if emit_ring is not None:
-                    window = emit_ring.window(self.cfg.clip_size)
+                    try:
+                        window = emit_ring.window(self.cfg.clip_size)
+                    except RuntimeError:
+                        # a push or the gather failed: self-heal as above
+                        self._drop_ring(tid)
+                        buf.clear()
+                        continue
                 else:
                     window = None
                 self._group.enqueue(
-                    _PendingClip(tid, list(buf), t_enq=time.perf_counter(),
-                                 window=window)
+                    _PendingClip(tid, list(buf), owner=self, owner_gen=self._gen,
+                                 t_enq=time.perf_counter(), window=window)
                 )
                 self.since_emit[tid] = 0
                 if self.stagger_windows and tid not in self._stagger_assigned:
@@ -437,12 +512,17 @@ class StreamingEngine:
                 self._early_emitted.add(tid)
                 emit_ring = self.rings.get(tid) if self.device_resident else None
                 if emit_ring is not None:
-                    window = emit_ring.window_padded(self.cfg.clip_size)
+                    try:
+                        window = emit_ring.window_padded(self.cfg.clip_size)
+                    except RuntimeError:
+                        self._drop_ring(tid)
+                        buf.clear()
+                        continue
                 else:
                     window = None
                 self._group.enqueue(
-                    _PendingClip(tid, list(buf), t_enq=time.perf_counter(),
-                                 window=window)
+                    _PendingClip(tid, list(buf), owner=self, owner_gen=self._gen,
+                                 t_enq=time.perf_counter(), window=window)
                 )
 
         self._gc_tracks()
@@ -461,7 +541,9 @@ class StreamingEngine:
 
     def flush(self) -> List[Tuple[int, float]]:
         """Score everything queued and drain in-flight work (end of stream
-        or low-latency mode)."""
+        or low-latency mode). In a shared dispatch group this drains the
+        GROUP's queue up to the point of the call; peers' results are routed
+        to them, only this stream's scores are returned."""
         group = self._group
         target = group.drain_snapshot()
         group.harvest_until(target)
@@ -538,10 +620,13 @@ class StreamingEngine:
             if not candidates:
                 return None
             lru = min(candidates, key=lambda t: self.last_seen.get(t, -1))
-            self.rings.pop(lru, None)
+            self._drop_ring(lru)
             self.buffers.pop(lru, None)   # its window continuity is gone
             self.since_emit.pop(lru, None)
         return DeviceRing(group.ring_kernels(), uploader=group.ring_uploader())
+
+    def _drop_ring(self, tid: int) -> None:
+        self.rings.pop(tid, None)
 
     def _gc_tracks(self) -> None:
         dead = [
@@ -551,7 +636,7 @@ class StreamingEngine:
         ]
         for tid in dead:
             self.buffers.pop(tid, None)
-            self.rings.pop(tid, None)
+            self._drop_ring(tid)
             self.lm5_offsets.pop(tid, None)
             self.since_emit.pop(tid, None)
             self.last_seen.pop(tid, None)

@@ -281,3 +281,29 @@ def test_from_jax_checkpoint_refuses(tmp_path, variables, how):
         JaxClipScorer.from_jax_checkpoint(path, cfg=JaxI3DConfig(**CFG, width_per_group=32)
                                           if how == "width" else JaxI3DConfig(**CFG),
                                           dtype=jnp.float32)
+
+
+@pytest.mark.parametrize("sidecar", ["truncated", "no_crop_size", "no_clip_size", "not_a_dict",
+                                     "absent"])
+def test_from_jax_checkpoint_sidecar_errors_name_the_sidecar(tmp_path, variables, sidecar):
+    """ADVICE.md r5 #3, fixed in the port only: a sidecar that is not JSON,
+    or that lacks a geometry key the trainer always writes
+    (``stdd_tpu/train/run_i3d.py:347-350``), raises a ``ValueError`` naming
+    it instead of a bare ``JSONDecodeError`` or a silent 32/224 fallback.
+    With no sidecar at all the defaults hold, as in the JAX package."""
+    path = _save_jax(tmp_path, variables, metadata={"crop_size": 64, "clip_size": 8,
+                                                   "temporal_only": False})
+    meta = {"truncated": '{"crop_size": 64, "clip_si',
+            "no_crop_size": json.dumps({"clip_size": 8, "temporal_only": False}),
+            "no_clip_size": json.dumps({"crop_size": 64}),
+            "not_a_dict": json.dumps([64, 8])}
+    if sidecar == "absent":
+        os.remove(path + ".json")
+        ts = ClipScorer.from_jax_checkpoint(path, dtype=torch.float32, device="cpu")
+        assert (ts.cfg.crop_size, ts.cfg.num_frames) == (I3DConfig().crop_size,
+                                                         I3DConfig().num_frames)
+        return
+    with open(path + ".json", "w") as f:
+        f.write(meta[sidecar])
+    with pytest.raises(ValueError, match=r"sidecar .*\.json"):
+        ClipScorer.from_jax_checkpoint(path, dtype=torch.float32, device="cpu")

@@ -47,7 +47,7 @@ def test_every_module_imports_without_jax_cv2_or_stdd_tpu():
     res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                          cwd=str(ROOT), env=env, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert int(res.stdout.split()[-1]) >= 20      # every module of the slice was walked
+    assert int(res.stdout.split()[-1]) >= 37      # every module of the slices so far was walked
 
 
 @pytest.mark.parametrize("path", SOURCES)

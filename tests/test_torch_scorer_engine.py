@@ -202,3 +202,54 @@ def test_engine_ring_path_matches_packed_path(engine_runs, fmt):
 def test_cpu_engine_never_launches_the_kernel(engine_runs):
     """With ``device="cpu"`` every warp took K1's plain version."""
     assert engine_runs["launches_after"] == engine_runs["launches_before"]
+
+
+@pytest.mark.parametrize("where", ["push_many", "window"])
+def test_failed_ring_upload_drops_only_that_tracks_ring(scorers, engine_runs, monkeypatch, where):
+    """One track's failed ring upload (``RingKernels.push_many``) or window
+    gather (``RingKernels.window``) raises once: the engine drops that
+    track's ring, clears its buffer and keeps scoring, as the JAX engine
+    does (``tests/test_ring.py::test_ring_uploader_error_is_per_ring`` and
+    ``::test_ring_broken_recovers``); the next frame builds a new ring. The
+    other track's scores are those of the run without a fault. This covers
+    host-side failures only: a real CUDA fault is sticky and poisons the
+    whole context, which no per-ring recovery can undo."""
+    from stdd_torch.runtime.ring import RingKernels
+
+    _, ts = scorers["rgb"]
+    scene = Scene((240, 320), n_faces=2, seed=0, face_px=72)
+    eng = StreamingEngine(ts, scene.oracle(PIPE["detect_every"]), cfg=PipelineConfig(**PIPE),
+                          device_resident=True, **ENGINE_KW)
+    orig = getattr(RingKernels, where)
+    calls, failed = [0], []
+
+    def flaky(self, ring, *args):
+        calls[0] += 1
+        if calls[0] == 6:
+            failed.extend(t for t, r in eng.rings.items() if r.ring is ring)
+            raise RuntimeError("injected ring fault")
+        return orig(self, ring, *args)
+
+    monkeypatch.setattr(RingKernels, where, flaky)
+    emitted, mark = [], None
+    try:
+        for i in range(36):
+            emitted += eng.step(scene.frame(i))
+            if failed and mark is None:
+                mark = len(emitted)
+        emitted += eng.flush()
+        per_track = {t: list(s) for t, s in eng.track_clip_scores.items()}
+    finally:
+        eng.close()
+    _, clean, _ = engine_runs["rgb"]["torch_ring"]
+    assert len(failed) == 1, "the fault did not hit a ring of the stream"
+    hit = failed[0]
+    assert len(emitted) > mark, "the stream stopped scoring after the fault"
+    assert 0 < len(per_track[hit]) < len(clean[hit])      # recovered, a window short
+    for t in clean:
+        if t != hit:
+            # the same windows; a clip may share its batch with another
+            # partner than in the clean run, which moves a float32 prob by
+            # ~1e-7
+            assert len(per_track[t]) == len(clean[t])
+            np.testing.assert_allclose(per_track[t], clean[t], rtol=0, atol=1e-6)

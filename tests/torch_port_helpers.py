@@ -65,3 +65,45 @@ def max_rel_err(got, want) -> float:
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def fake_detector(n_faces: int = 1):
+    """Deterministic moving 'faces' as YuNet rows (x, y, w, h, 5 landmarks,
+    score): the rows of ``tests/test_engine.py::make_fake_detector``, numpy
+    only, so one detector serves both packages' engines."""
+    from stdd_torch.ops.align import STD_POINTS_256
+
+    state = {"f": 0}
+
+    def detect(frame_bgr):
+        f = state["f"]
+        state["f"] += 1
+        rows = []
+        for k in range(n_faces):
+            x = 30 + 40 * k + 1.5 * f
+            y = 40 + 30 * k + 0.5 * f
+            w, h = 60.0, 70.0
+            lm = (STD_POINTS_256 * (w / 256.0) + np.array([x, y])).reshape(-1)
+            rows.append([x, y, w, h, *lm, 0.92])
+        return np.asarray(rows, np.float32)
+
+    return detect
+
+
+def port_i3d_variables(cfg, seed: int = 0) -> dict:
+    """Random-BN variables for ``cfg`` (a ``stdd_torch`` ``I3DConfig``)
+    drawn by the port's initializers and carried to a flax tree by the
+    weight bridge: the same tree as ``jax_i3d_variables`` gives, without
+    tracing the JAX model's init (about 10 s on a CPU), for tests that need
+    only equal weights on both sides, not the JAX initializers."""
+    import torch
+
+    from stdd_torch.runtime.classifier import ClipScorer
+    from stdd_torch.utils.weights import i3d_torch_to_flax
+
+    sd = ClipScorer.random_init(cfg=cfg, seed=seed, dtype=torch.float32,
+                                device="cpu").model.state_dict()
+    v = i3d_torch_to_flax(sd)
+    rng = np.random.RandomState(seed + 1)
+    return {"params": randomize_bn(v["params"], rng),
+            "batch_stats": randomize_bn(v["batch_stats"], rng)}
