@@ -11,7 +11,9 @@ bridge is a name map plus layout changes:
 
 Every leaf must be consumed and every model entry produced: leftovers and
 gaps raise. :func:`i3d_torch_to_flax` is the inverse, for writing the
-trainer's checkpoint format from the port.
+trainer's checkpoint format from the port. :func:`i3d_opt_state_to_flax` and
+:func:`i3d_opt_state_from_flax` carry the optimizer state (the momentum
+trace or Adam's moments, and the counts) the same way.
 """
 
 from __future__ import annotations
@@ -109,3 +111,61 @@ def i3d_torch_to_flax(state_dict: Mapping) -> Dict[str, dict]:
             node = node.setdefault(m, {})
         node[name] = a
     return out
+
+
+# The optimizer chain's state (``train/engine_i3d.py``): a tuple with one
+# dict per transform, laid out as flax's ``to_state_dict`` writes optax's
+# state; the per-parameter trees ("trace", "mu", "nu") are keyed by the
+# port's parameter names here and by the flax tree in a checkpoint.
+_OPT_TREES = ("trace", "mu", "nu")
+
+
+def i3d_opt_state_to_flax(opt_state) -> Dict[str, dict]:
+    """The port's optimizer state → the JAX trainer's ``opt_state`` tree:
+    ``{"0": {...}, "1": {...}, ...}`` with flax-named parameter trees
+    (float32) and int32 ``count`` scalars."""
+    out = {}
+    for i, entry in enumerate(opt_state):
+        node = {}
+        for key, v in entry.items():
+            if key in _OPT_TREES:
+                node[key] = i3d_torch_to_flax(v)["params"]
+            elif key == "count":
+                node[key] = np.asarray(v, np.int32)
+            elif key == "inner_state" and v == {}:
+                node[key] = {}
+            else:
+                raise ValueError(f"optimizer state entry {i} has an unknown field {key!r}")
+        out[str(i)] = node
+    return out
+
+
+def i3d_opt_state_from_flax(tree: Mapping, like):
+    """A checkpoint's ``opt_state`` tree → the port's optimizer state, in
+    the structure, dtypes and devices of ``like`` (the chain's ``init``).
+    A checkpoint of another chain (other transforms, other fields or other
+    parameters) raises."""
+    if sorted(tree, key=int) != [str(i) for i in range(len(like))]:
+        raise ValueError(f"checkpoint opt_state has entries {sorted(tree)}, the optimizer "
+                         f"{len(like)}")
+    out = []
+    for i, entry in enumerate(like):
+        src = tree[str(i)]
+        if set(src) != set(entry):
+            raise ValueError(f"opt_state entry {i}: checkpoint fields {sorted(src)}, "
+                             f"optimizer fields {sorted(entry)}")
+        node = {}
+        for key, v in entry.items():
+            if key in _OPT_TREES:
+                got = i3d_flax_to_torch({"params": src[key]})
+                if set(got) != set(v) or any(got[k].shape != v[k].shape for k in v):
+                    raise ValueError(f"opt_state entry {i} {key!r} does not match the "
+                                     "model's parameters")
+                node[key] = {k: got[k].to(device=t.device, dtype=t.dtype) for k, t in v.items()}
+            elif key == "count":
+                node[key] = int(np.asarray(src[key]))
+            else:
+                node[key] = {}
+        out.append(node)
+    return tuple(out)
+

@@ -1,6 +1,6 @@
 """The port stands alone: ``stdd_torch`` and ``chip_smoke.py`` import no
-JAX, no flax, nothing of ``stdd_tpu``, and none of cv2 or msgpack (the
-machine with the card has none of them)."""
+JAX, no flax or optax, nothing of ``stdd_tpu``, and none of cv2, msgpack or
+scikit-learn (the machine with the card has none of them)."""
 
 import ast
 import os
@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "stdd_tpu", "cv2", "msgpack")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "stdd_tpu", "cv2", "msgpack", "sklearn")
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "stdd_torch").rglob("*.py")) + [
     "chip_smoke.py"]
 
