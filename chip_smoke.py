@@ -85,7 +85,19 @@ exits non-zero without its result line):
               card against the CPU's (``TRAIN_F32_TOLS``);
 14. train_served — the trained checkpoint served unfused and through K2
               (3 launches a forward), as the fused scorer phase does, within
-              ``TRAINED_TOLS``.
+              ``TRAINED_TOLS``;
+15. dual    — ``stdd_torch.train.run_dual.main`` on the card at the shipped
+              run's width (d_model 256, 4 layers, 4 heads, T 8, batch 256,
+              DAT, SLERP, one-cycle AdamW) over a synthetic feature tree the
+              script writes (a real class and four fake techniques): three
+              epochs, validation, temperature, ``best.msgpack`` and the test
+              report; the loss must be finite, ``best.msgpack`` must reload
+              to the same logits, K1 and K2 stay unlaunched; the step's
+              device time on a fixed batch (CUDA events), peak memory, the
+              profiler's busy share, and the host's ``load_all``;
+16. dual_f32 — one float32 step of the dual trainer on the card against
+              the same step on the CPU (dropout 0, the same SLERP draws),
+              within ``DUAL_F32_TOLS``.
 
 The K2 phases (10) run before the scorer (4) in the script, as they did.
 Every measurement is printed as one JSON object per line; then the
@@ -95,7 +107,9 @@ Every measurement is printed as one JSON object per line; then the
 
 from __future__ import annotations
 
+import glob
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -1570,6 +1584,272 @@ def phase_train(dev, smi: str, tmp_dir: str):
     return ckpt
 
 
+# -- phase 15: the dual encoder trained and evaluated on the card ------------------
+
+# a synthetic clip-feature tree: per technique, videos of one track of 12-frame
+# clips (the trainer crops 8); names unique per technique, so no two videos
+# link. 3,072 clips: the training split (~2,150) holds the 2,048-clip epoch
+# (8 steps of 256)
+DUAL_TECHS = (("original", 128), ("deepfakes", 32), ("face2face", 32), ("faceswap", 32),
+              ("neuraltextures", 32))                 # (technique, videos)
+DUAL_CLIPS, DUAL_FRAMES = 12, 12
+DUAL_BATCH, DUAL_EPOCHS, DUAL_EPOCH_SAMPLES = 256, 3, 2048
+DUAL_TIMED_STEPS = 20
+# one float32 step on the card against the same step on the CPU (TF32 off,
+# dropout 0, the same SLERP draws): the loss within 1e-5 · max(1, |CPU|), the
+# gradients' norm within 1e-4 of it, Adam's moments within 1e-4 (mu, the
+# gradients' trace) and 2e-4 (nu, their squares) of their largest entry over
+# all parameters; between the port's own float32 and float64 on the CPU two
+# such steps differ by 1.3e-5, 7.5e-6 and 1.6e-5. The parameters within
+# 2.5e-5 · max(1, |CPU|): a first Adam step moves each by at most the
+# one-cycle's first LR (1.2e-5) whatever its gradient, and a gradient that
+# is zero but for rounding (the attention's key bias: softmax ignores a
+# shift) takes either sign.
+DUAL_F32_TOLS = {"loss": 1e-5, "grad_norm": 1e-4, "mu": 1e-4, "nu": 2e-4, "params": 2.5e-5}
+# best.msgpack holds the float32 weights exactly, so the reloaded model's
+# logits equal the trained model's (0.0 expected; the bound allows another
+# kernel choice for the same GEMMs)
+DUAL_RELOAD_TOL = 1e-5
+
+
+def write_feature_tree(root: str, rng) -> int:
+    """``<tech>/<name>/track_0/clip_k/{au,lmk}_features.npy``: reals a slow
+    random walk plus noise in every channel, each fake technique a frame-rate
+    flicker of its own amplitude on every fourth channel from one of its own
+    (a cue the per-clip z-score keeps); → the number of clips."""
+    n = 0
+    for k, (tech, videos) in enumerate(DUAL_TECHS):
+        for v in range(videos):
+            for c in range(DUAL_CLIPS):
+                d = os.path.join(root, tech, f"{tech[:3]}{v:03d}", "track_0", f"clip_{c}")
+                os.makedirs(d)
+                feats = []
+                for dim in (36, 132):
+                    x = (np.cumsum(rng.randn(DUAL_FRAMES, dim) * 0.3, axis=0)
+                         + rng.randn(DUAL_FRAMES, dim) * 0.5)
+                    if k:
+                        ch = np.arange(dim)[(np.arange(dim) % 4) == k - 1]
+                        x[:, ch] += (1.0 + 0.5 * k) * ((-1.0) ** np.arange(DUAL_FRAMES))[:, None]
+                    feats.append(x.astype(np.float32))
+                np.save(os.path.join(d, "au_features.npy"), feats[0])
+                np.save(os.path.join(d, "lmk_features.npy"), feats[1])
+                n += 1
+    return n
+
+
+class _EpochClock(logging.Handler):
+    """The times the trainer logs each epoch's line (and the line before its
+    first), for the epochs' wall time."""
+
+    def __init__(self):
+        super().__init__()
+        self.marks = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith(("train clips=", "[epoch ")):
+            self.marks.append(record.created)
+
+
+def dual_batch(data: dict, idx, dev) -> dict:
+    return {"A": torch.from_numpy(data["A"][idx]).to(dev),
+            "L": torch.from_numpy(data["L"][idx]).to(dev),
+            "y": torch.from_numpy(data["y"][idx]).to(dev),
+            "lengths": torch.from_numpy(data["lengths"][idx]).to(dev),
+            "dom_id": torch.from_numpy(data["dom_id"][idx]).to(dev)}
+
+
+def dual_setup(dev, n_domains: int, dropout: float = 0.15):
+    """The shipped model (run_dual's defaults: d_model 256, 4 layers, 4
+    heads, DAT) on ``dev``, its AdamW chain over a 3-epoch one-cycle of 8
+    steps an epoch, and the step; → (model, state, step, trains-everything
+    mask)."""
+    from stdd_torch.models.dual_encoder import DualEncoderAU_LMK
+    from stdd_torch.train import engine_dual as eng
+    from stdd_torch.train.altfreeze import active_mask_from_labels, dual_labels
+    from stdd_torch.train.step import TrainState
+
+    model = DualEncoderAU_LMK(dropout=dropout, use_dat=True, domain_classes=n_domains,
+                              seed=SEED).to(dev)
+    args = eng.DualTrainArgs(epochs=DUAL_EPOCHS, batch=DUAL_BATCH)
+    tx = eng.make_dual_optimizer(args, eng.make_schedule(
+        args, DUAL_EPOCH_SAMPLES // DUAL_BATCH))
+    params = dict(model.named_parameters())
+    state = TrainState(params, {}, tx.init(params), 0)
+    mask = active_mask_from_labels(dual_labels(params), ("au", "lmk", "other"))
+    return model, state, eng.make_dual_train_step(model, tx, args), mask
+
+
+def dual_f32_card_vs_cpu(dev, data: dict, n_domains: int) -> dict:
+    """One float32 step of the dual trainer on the card and on the CPU from
+    the same weights, batch and SLERP draws, dropout 0."""
+    from stdd_torch.train.engine_dual import slerp_draws
+
+    idx = np.arange(DUAL_BATCH)
+    draws = slerp_draws(torch.from_numpy(data["y"][idx]).int(), 0.1, 0.4,
+                        torch.Generator().manual_seed(SEED))
+    out = {}
+    for where in ("cpu", dev):
+        model, state, step, mask = dual_setup(where, n_domains, dropout=0.0)
+        model.head_dropout = 0.0
+        state, m = step(state, dual_batch(data, idx, where), mask, 0.1, SEED,
+                        draws=tuple(d.to(where) for d in draws))
+        adam = state.opt_state[1][0]
+        out[str(where)] = (float(m["loss"]), float(m["grad_norm"]),
+                           {k: v.detach().double().cpu() for k, v in state.params.items()},
+                           {f: {k: v.double().cpu() for k, v in adam[f].items()}
+                            for f in ("mu", "nu")})
+    (lc, gc, pc, ac), (lg, gg, pg, ag) = out["cpu"], out[str(dev)]
+
+    def over_largest(a, b):
+        return (max(float((a[k] - b[k]).abs().max()) for k in b)
+                / max(float(b[k].abs().max()) for k in b))
+
+    return {"loss": abs(lg - lc) / max(1.0, abs(lc)), "grad_norm": abs(gg - gc) / gc,
+            "params": max(float((pg[k] - pc[k]).abs().max()) / max(1.0, float(pc[k].abs().max()))
+                          for k in pc),
+            "mu": over_largest(ag["mu"], ac["mu"]), "nu": over_largest(ag["nu"], ac["nu"]),
+            "loss_cpu": lc, "grad_norm_cpu": gc}
+
+
+def phase_dual(dev, smi: str, tmp_dir: str) -> None:
+    """``stdd_torch.train.run_dual.main`` on the card at the shipped run's
+    width (d_model 256, 4 layers, 4 heads, FF 512, dropout 0.15, DAT, SLERP,
+    one-cycle AdamW at 3e-4, clip 1.0, T 8, batch 256, float32) over a
+    synthetic feature tree the script writes: 3 epochs of 2048 sampled clips,
+    validation, temperature, calibrated threshold, ``best.msgpack`` and the
+    test report. Then ``best.msgpack`` reloaded in a fresh model; the step's
+    device time on a fixed batch (CUDA events), peak memory and the
+    profiler's busy share; the host's ``load_all``; and (phase ``dual_f32``)
+    a float32 step on the card against the CPU's."""
+    from stdd_torch.data.dataset import DualFeaturesClipDataset
+    from stdd_torch.data.splits import make_split
+    from stdd_torch.models.dual_encoder import DualEncoderAU_LMK
+    from stdd_torch.train import run_dual
+    from stdd_torch.train.engine_dual import collect_logits
+    from stdd_torch.utils.logging import get_logger
+    from stdd_torch.utils.msgpack import msgpack_restore
+    from stdd_torch.utils.weights import dual_flax_to_torch
+
+    tree, out = os.path.join(tmp_dir, "features"), os.path.join(tmp_dir, "dual_run")
+    n_clips = write_feature_tree(tree, np.random.RandomState(SEED + 15))   # set-up, not timed
+    # run_dual's split: the same clips and seed
+    split = make_split(sorted(glob.glob(os.path.join(tree, "**", "track_*", "clip_*"),
+                                        recursive=True)), seed=SEED)
+    clock = _EpochClock()
+    get_logger("train").addHandler(clock)
+    argv = ["--data", tree, "--out", out, "--epochs", str(DUAL_EPOCHS),
+            "--epoch_samples", str(DUAL_EPOCH_SAMPLES), "--seed", str(SEED), "--device", str(dev)]
+    fused_bottleneck.launches = warp_affine.launches = 0        # the dual path starts here
+    t0 = time.perf_counter()
+    res = run_dual.main(argv)
+    seconds = time.perf_counter() - t0
+    k1, k2 = warp_affine.launches, fused_bottleneck.launches    # ... ends here
+    get_logger("train").removeHandler(clock)
+    history = res["history"]
+    # run_dual caps an epoch at the training split's size: the tree must hold
+    # enough clips for DUAL_EPOCH_SAMPLES, the epoch dual_setup times
+    steps_per_epoch = min(DUAL_EPOCH_SAMPLES, len(split["train"]) // 2 * 2) // DUAL_BATCH
+    with open(os.path.join(out, "report_median.json")) as f:
+        report = json.load(f)
+    losses = [h["loss"] for h in history]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"dual: epoch losses {losses} are not finite")
+
+    # best.msgpack reloaded in a fresh model scores the validation clips as
+    # the trained model does
+    train_ds = DualFeaturesClipDataset(clip_dirs=split["train"], T=8, is_train=True,
+                                       aug_noise_au=0.05, aug_noise_lmk=0.01, seed=SEED)
+    val = DualFeaturesClipDataset(clip_dirs=split["val"], T=8).load_all()
+    trained = DualEncoderAU_LMK(use_dat=True, domain_classes=train_ds.n_domains).to(dev)
+    trained.load_state_dict(res["params"])
+    reloaded = DualEncoderAU_LMK(use_dat=True, domain_classes=train_ds.n_domains)
+    with open(os.path.join(out, "best.msgpack"), "rb") as f:
+        reloaded.load_state_dict(dual_flax_to_torch(msgpack_restore(f.read()), reloaded))
+    reloaded.to(dev)
+    want, _ = collect_logits(trained, val)
+    got, _ = collect_logits(reloaded, val)
+    reload_err = float(np.abs(got - want).max())
+    if not reload_err <= DUAL_RELOAD_TOL:
+        raise AssertionError(f"dual: best.msgpack reloaded scores {reload_err} away")
+    del trained, reloaded
+
+    # the host's load_all of the training split, as each epoch re-draws it
+    load_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        train = train_ds.load_all()
+        load_s.append(time.perf_counter() - t0)
+
+    # the step alone on the card: the shipped model, one fixed batch
+    model, st, step, mask = dual_setup(dev, train_ds.n_domains)
+    batch = dual_batch(train, np.arange(DUAL_BATCH), dev)
+    for _ in range(3):                                          # warm-up
+        st, m = step(st, batch, mask, 0.1, SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in range(DUAL_TIMED_STEPS)]
+    for a, b in evs:
+        a.record()
+        st, m = step(st, batch, mask, 0.1, SEED)
+        b.record()
+    torch.cuda.synchronize()
+    step_ms = np.array([a.elapsed_time(b) for a, b in evs])
+    peak = torch.cuda.max_memory_allocated()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            st, m = step(st, batch, mask, 0.1, SEED)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1000
+    busy_ms, top = device_busy(prof, steps=5)
+    n_kernels = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 5
+    del model, st, batch
+    torch.cuda.empty_cache()
+
+    epochs_s = np.diff(clock.marks).tolist()
+    r = {"phase": "dual", "card": smi, "model": "DualEncoderAU_LMK", "d_model": 256,
+         "layers": 4, "heads": 4, "T": 8, "batch": DUAL_BATCH, "dtype": "float32",
+         "clips_written": n_clips, "split": {k: len(v) for k, v in split.items()},
+         "epochs": DUAL_EPOCHS, "epoch_samples": DUAL_EPOCH_SAMPLES,
+         "steps_per_epoch": steps_per_epoch, "seconds_run_dual": seconds,
+         "epoch_wall_s": epochs_s, "load_all_s": load_s, "epoch_loss": losses,
+         "val_auc": [h["val_auc"] for h in history], "phases": [h["phase"] for h in history],
+         "temperature": res["temperature"], "threshold_calibrated": res["threshold_calibrated"],
+         "test_clip_auc": report["clip_metrics"]["auc_roc"],
+         "test_video_auc": report["video_metrics"]["auc_roc"],
+         "k1_launches": k1, "k2_launches": k2, "reload_max_abs_logit_err": reload_err,
+         "step_ms_median": float(np.median(step_ms)),
+         "step_ms_p90": float(np.percentile(step_ms, 90)),
+         "clips_per_s": DUAL_BATCH * 1000.0 / float(np.median(step_ms)),
+         "max_memory_allocated_gib": peak / 2 ** 30,
+         "profiled_steps": 5, "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+         "device_busy_share": busy_ms / prof_wall_ms, "kernels_per_step": n_kernels,
+         "top_kernels_ms_per_step": top}
+    emit(r)
+    if k1 or k2:
+        raise AssertionError(f"dual: K1/K2 launched {k1}/{k2} times on the dual path")
+    if steps_per_epoch != DUAL_EPOCH_SAMPLES // DUAL_BATCH:
+        raise AssertionError(f"dual: {steps_per_epoch} steps an epoch; the tree is too small")
+    if len(history) != DUAL_EPOCHS:
+        raise AssertionError(f"dual: {len(history)} epochs ran, not {DUAL_EPOCHS}")
+    for name in ("best.msgpack", "best_threshold.txt", "best_threshold_calibrated.txt",
+                 "temperature.txt", "args.json", "history.json", "report_median.json"):
+        if not os.path.isfile(os.path.join(out, name)):
+            raise AssertionError(f"dual: {name} was not written")
+    if not 0.0 <= report["clip_metrics"]["auc_roc"] <= 1.0:
+        raise AssertionError(f"dual: test clip AUC {report['clip_metrics']['auc_roc']}")
+
+    f32 = dual_f32_card_vs_cpu(dev, train, train_ds.n_domains)
+    emit({"phase": "dual_f32", "card": smi, **f32, "tol": DUAL_F32_TOLS})
+    for key, tol in DUAL_F32_TOLS.items():
+        if not f32[key] <= tol:
+            raise AssertionError(f"dual_f32: float32 card vs CPU {key} {f32[key]} > {tol}")
+
+
 def timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -1633,6 +1913,8 @@ def main() -> None:
         trained16 = ClipScorer.from_jax_checkpoint(ckpt, upload_format="yuv420", device=dev)
         serve_fused(dev, ckpt, trained16.model, "train_served", TRAINED_TOLS, 0.0)
         del trained16
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        phase_dual(dev, smi, tmp_dir)
 
     # each kernel's numbers at the shape its path launched it with: K1 at
     # the engine's N; K2 at score_dense's batch of 8 clips, per launch over

@@ -1,7 +1,7 @@
 """Configuration dataclasses of the live scoring path.
 
-Own copies of ``stdd_tpu.config.I3DConfig``, ``DetectorConfig`` and
-``PipelineConfig`` (same fields, same defaults), so a configuration moves between the two packages
+Own copies of ``stdd_tpu.config.I3DConfig``, ``DualEncoderConfig``,
+``DetectorConfig`` and ``PipelineConfig`` (same fields, same defaults), so a configuration moves between the two packages
 field for field. The port's I3D computes the plain convolutions whatever
 ``s2d_stem``/``stem_t2`` say (both are exact TPU re-layouts of the same
 math); ``fused_s2`` runs s2 through K2 (``ops/bottleneck.py``);
@@ -42,6 +42,24 @@ class I3DConfig:
     fused_s2: bool = False
     int8_stages: Tuple[str, ...] = ()
     stop_point: int = 5
+
+
+@dataclass(frozen=True)
+class DualEncoderConfig:
+    """Dual-branch AU+LMK transformer (reference: dualrun/model/dual_encoder.py:110)."""
+
+    au_dim: int = 36
+    lmk_dim: int = 132
+    d_model: int = 256
+    n_heads: int = 4
+    depth: int = 4
+    ff_mult: int = 4
+    dropout: float = 0.1
+    max_len: int = 512
+    use_domain_head: bool = False
+    n_domains: int = 5
+    use_aux_heads: bool = False
+    conv_dilations: Tuple[int, ...] = (1, 2, 4)
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """Video-grouped, identity-linked, seeded train/val/test splits.
 
-Own copy of ``group_by_video`` (:25), ``link_identity_groups`` (:46) and
-``make_split`` (:78) of ``stdd_tpu/data/splits.py`` (reference
+Own copy of ``group_by_video`` (:25), ``link_identity_groups`` (:46),
+``make_split`` (:78) and ``load_split`` (:143) of ``stdd_tpu/data/splits.py`` (reference
 ``dualrun/data/makeFF_splits.py:64``, ``makeSplit.py:123``): no video, and
 no manipulated identity, spans two phases, and one seed gives the same
 lists in both packages.
@@ -9,6 +9,7 @@ lists in both packages.
 
 from __future__ import annotations
 
+import json
 import random
 import re
 from collections import defaultdict
@@ -102,3 +103,9 @@ def make_split(
     for p in PHASES:
         out[p].sort()
     return out
+
+
+def load_split(path: str) -> Dict[str, List[str]]:
+    """A split JSON as ``make_split`` returns it ({phase: [clip dirs]})."""
+    with open(path) as f:
+        return json.load(f)

@@ -1,7 +1,14 @@
-"""AltFreezing for the I3D classifier (CVPR'23): alternate the temporal and
-the spatial convolutions every ``alter_freq`` iterations.
+"""AltFreezing, both rigs.
 
-Port of the I3D part of ``stdd_tpu/train/altfreeze.py`` (``i3d_alt_labels``
+1. The I3D classifier (CVPR'23): alternate the temporal and the spatial
+   convolutions every ``alter_freq`` iterations.
+2. The dual encoder: epoch phases joint → A (train AU, freeze LMK) → B
+   (train LMK, freeze AU) → … → joint tail (reference
+   ``dualrun/train/altfreezing.py``; ``dual_labels`` :55,
+   ``active_mask_from_labels`` :69, ``AltFreezeCfg`` :92, ``dual_phase``
+   :100, ``dual_phase_active`` :113).
+
+Port of ``stdd_tpu/train/altfreeze.py`` (``i3d_alt_labels``
 :36, ``i3d_phase_mask`` :74, ``masked_update`` :125; reference
 ``slowfast/models/optimizer.py:12`` temporal_spatial_sep and :151
 construct_optimizer_altertraining). The partition is by conv kernel shape:
@@ -9,15 +16,16 @@ construct_optimizer_altertraining). The partition is by conv kernel shape:
 1×1×1 convolutions, the 5×7×7 stem, BN, the head) both. One optimizer
 serves both phases: the inactive group's gradient is zeroed before the
 optimizer and its update after it, so its values stay bit-identical while
-its momentum keeps accumulating the decay term, as in JAX. The dual-encoder
-epoch phases wait for that family.
+its momentum keeps accumulating the decay term, as in JAX (Adam's moments of
+a frozen leaf decay toward zero, as optax's do).
 
 Trees are ``{name: tensor}`` dicts keyed by the model's parameter names.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import torch
 
@@ -48,6 +56,50 @@ def i3d_phase_mask(labels: Dict[str, str], step: int, alter_freq: int) -> Dict[s
     train_temporal = (step // alter_freq) % 2 == 0
     active = {BOTH: True, TEMPORAL: train_temporal, SPATIAL: not train_temporal}
     return {k: 1.0 if active[lab] else 0.0 for k, lab in labels.items()}
+
+
+def dual_labels(params: Dict[str, torch.Tensor]) -> Dict[str, str]:
+    """au / lmk / other for each dual-encoder parameter, by its branch."""
+    def label(name: str) -> str:
+        top = name.split(".")[0]
+        return {"au_enc": "au", "lmk_enc": "lmk"}.get(top, "other")
+
+    return {k: label(k) for k in params}
+
+
+def active_mask_from_labels(labels: Dict[str, str], active: Tuple[str, ...]) -> Dict[str, float]:
+    return {k: 1.0 if lab in active else 0.0 for k, lab in labels.items()}
+
+
+@dataclass(frozen=True)
+class AltFreezeCfg:
+    enabled: bool = True
+    warmup_epochs: int = 2
+    period: int = 2
+    joint_tail: int = 2
+    start_epoch: int = 1
+
+
+def dual_phase(cfg: AltFreezeCfg, epoch: int, last_epoch: int) -> str:
+    """'joint', 'A' or 'B' for ``epoch`` (1-based) of ``last_epoch``."""
+    if not cfg.enabled or epoch < cfg.start_epoch:
+        return "joint"
+    if epoch < cfg.start_epoch + cfg.warmup_epochs:
+        return "joint"
+    if epoch > max(cfg.start_epoch, last_epoch - cfg.joint_tail):
+        return "joint"
+    k = (epoch - cfg.start_epoch - cfg.warmup_epochs) // max(1, cfg.period)
+    return "A" if k % 2 == 0 else "B"
+
+
+def dual_phase_active(phase: str) -> Tuple[str, ...]:
+    """The labels a phase trains: the heads always; A the AU branch, B the
+    landmark branch."""
+    if phase == "A":
+        return ("au", "other")
+    if phase == "B":
+        return ("lmk", "other")
+    return ("au", "lmk", "other")
 
 
 def masked_update(tx, grads: Dict[str, torch.Tensor], opt_state, params: Dict[str, torch.Tensor],

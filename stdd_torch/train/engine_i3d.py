@@ -6,8 +6,9 @@ Port of ``stdd_tpu/train/engine_i3d.py``: ``I3DTrainArgs`` :38,
 ``precise_bn_update`` :182 (reference ``slowfast/models/optimizer.py``,
 ``slowfast/utils/lr_policy.py``, ``slowfast/utils/bn_helper.py:11``).
 
-The optimizer is optax's chain written out, transform by transform, in
-optax's order, because the order decides the numbers:
+The optimizer is optax's chain written out, transform by transform
+(``train/optim.py``), in optax's order, because the order decides the
+numbers:
 
 - SGD: ``clip_by_global_norm`` (over the masked gradients) →
   ``add_decayed_weights`` masked off BN → the optional BN decay → the
@@ -29,7 +30,7 @@ trainer's checkpoints.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +38,9 @@ from torch import nn
 
 from .altfreeze import i3d_alt_labels, i3d_phase_mask, masked_update
 from .lr_policy import cosine_lr, step_decay, with_warmup
-from .step import TrainState, bce_with_logits
+from .optim import (GradientTransformation, add_decayed_weights, chain, clip_by_global_norm,
+                    global_norm, scale_by_adam, scale_by_learning_rate, trace)
+from .step import TrainState, bce_with_logits, fold_in
 
 Tree = Dict[str, torch.Tensor]
 
@@ -66,114 +69,8 @@ class I3DTrainArgs:
     seed: int = 0
 
 
-class GradientTransformation(NamedTuple):
-    """optax's pair: ``init(params) -> state`` and
-    ``update(updates, state, params) -> (updates, state)`` over trees."""
-
-    init: Callable
-    update: Callable
-
-
 def _is_bn(name: str) -> bool:
     return "bn" in name.split(".")
-
-
-def global_norm(tree: Tree) -> torch.Tensor:
-    """``optax.global_norm``: the square root of the sum of every leaf's sum
-    of squares."""
-    return torch.sqrt(sum((g * g).sum() for g in tree.values()))
-
-
-def clip_by_global_norm(max_norm: float) -> GradientTransformation:
-    def update(updates, state, params=None):
-        g_norm = global_norm(updates)
-        trigger = g_norm < max_norm
-        return {k: torch.where(trigger, g, (g / g_norm) * max_norm)
-                for k, g in updates.items()}, state
-
-    return GradientTransformation(lambda params: {}, update)
-
-
-def add_decayed_weights(weight_decay: float, mask: Dict[str, bool]) -> GradientTransformation:
-    """``optax.add_decayed_weights(wd, mask)``: ``g + wd·p`` where the mask is
-    true; its state is ``masked``'s ``{"inner_state": {}}``."""
-
-    def update(updates, state, params):
-        return {k: g + weight_decay * params[k] if mask[k] else g
-                for k, g in updates.items()}, state
-
-    return GradientTransformation(lambda params: {"inner_state": {}}, update)
-
-
-def _zeros(params: Tree) -> Tree:
-    return {k: torch.zeros_like(p, memory_format=torch.preserve_format)
-            for k, p in params.items()}
-
-
-def trace(decay: float, nesterov: bool = False, dampening: float = 0.0
-          ) -> GradientTransformation:
-    """``optax.trace``: ``t = g + decay·t`` (with nesterov the update is
-    ``g + decay·t``); with ``dampening`` torch SGD's ``t = decay·t +
-    (1 − dampening)·g`` (engine_i3d.py:61 ``_trace_with_dampening``)."""
-
-    def update(updates, state, params=None):
-        t = state["trace"]
-        if dampening:
-            new = {k: decay * t[k] + (1.0 - dampening) * g for k, g in updates.items()}
-            return new, {"trace": new}
-        new = {k: g + decay * t[k] for k, g in updates.items()}
-        out = {k: g + decay * new[k] for k, g in updates.items()} if nesterov else new
-        return out, {"trace": new}
-
-    return GradientTransformation(lambda params: {"trace": _zeros(params)}, update)
-
-
-def _f32_pow(base: float, count: int) -> float:
-    return float(np.float32(base) ** np.float32(count))
-
-
-def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                  eps_root: float = 0.0) -> GradientTransformation:
-    """``optax.scale_by_adam``: moments ``(1−b)·g^k + b·m``, bias corrections
-    at the incremented count, ``m̂ / (sqrt(v̂ + eps_root) + eps)``."""
-
-    def init(params):
-        return {"count": 0, "mu": _zeros(params), "nu": _zeros(params)}
-
-    def update(updates, state, params=None):
-        mu = {k: (1 - b1) * g + b1 * state["mu"][k] for k, g in updates.items()}
-        nu = {k: (1 - b2) * (g * g) + b2 * state["nu"][k] for k, g in updates.items()}
-        count = state["count"] + 1
-        c1 = float(np.float32(1) - np.float32(_f32_pow(b1, count)))
-        c2 = float(np.float32(1) - np.float32(_f32_pow(b2, count)))
-        out = {k: (mu[k] / c1) / (torch.sqrt(nu[k] / c2 + eps_root) + eps) for k in updates}
-        return out, {"count": count, "mu": mu, "nu": nu}
-
-    return GradientTransformation(init, update)
-
-
-def scale_by_learning_rate(schedule: Callable[[int], float]) -> GradientTransformation:
-    """``optax.scale_by_learning_rate``: ``-lr(count)·g``, then count + 1."""
-
-    def update(updates, state, params=None):
-        step_size = -schedule(state["count"])
-        return {k: step_size * g for k, g in updates.items()}, {"count": state["count"] + 1}
-
-    return GradientTransformation(lambda params: {"count": 0}, update)
-
-
-def chain(*txs: GradientTransformation) -> GradientTransformation:
-    def init(params):
-        return tuple(t.init(params) for t in txs)
-
-    def update(updates, state, params=None):
-        new_state = []
-        for t, s in zip(txs, state):
-            updates, s = t.update(updates, s, params)
-            new_state.append(s)
-        return updates, tuple(new_state)
-
-    return GradientTransformation(init, update)
 
 
 def make_i3d_optimizer(params: Tree, args: I3DTrainArgs,
@@ -218,13 +115,6 @@ def make_lr_schedule(args: I3DTrainArgs) -> Callable[[int], float]:
     return sched
 
 
-def _fold_in(seed: int, step: int) -> int:
-    """A dropout seed for iteration ``step`` of a run seeded ``seed``, so a
-    resumed run draws the masks an unbroken one would (``jax.random.fold_in``
-    plays this part in JAX)."""
-    return (seed * 1_000_003 + step) % (1 << 63)
-
-
 def make_i3d_train_step(model: nn.Module, tx: GradientTransformation, labels: Dict[str, str],
                         alter_freq: int, loss_fn=bce_with_logits) -> Callable:
     """``step(state, clips, targets, seed) -> (state, metrics)``: one
@@ -238,7 +128,7 @@ def make_i3d_train_step(model: nn.Module, tx: GradientTransformation, labels: Di
 
     def step(state: TrainState, clips: torch.Tensor, targets: torch.Tensor, seed: int):
         mask = i3d_phase_mask(labels, state.step, alter_freq)
-        generator.manual_seed(_fold_in(seed, state.step))
+        generator.manual_seed(fold_in(seed, state.step))
         names = list(state.params)
         logits = model(clips, train=True, generator=generator)
         loss = loss_fn(logits, targets)

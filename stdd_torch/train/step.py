@@ -1,4 +1,5 @@
-"""The training state and the flattening loss of the I3D trainer.
+"""The training state, the flattening loss of the I3D trainer and the
+per-step seed of both trainers' random draws.
 
 Port of ``TrainState`` and ``bce_with_logits`` (``stdd_tpu/train/step.py:28,43``).
 In JAX the state is an immutable pytree that each step replaces; here
@@ -37,3 +38,10 @@ class TrainState:
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """The shared loss over flattened logits and labels."""
     return _bce(logits.reshape(-1), labels.reshape(-1))
+
+
+def fold_in(seed: int, step: int) -> int:
+    """The seed of iteration ``step``'s draws (dropout masks, SLERP
+    partners) in a run seeded ``seed``, so a resumed run draws what an
+    unbroken one would (``jax.random.fold_in`` plays this part in JAX)."""
+    return (seed * 1_000_003 + step) % (1 << 63)

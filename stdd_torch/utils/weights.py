@@ -1,4 +1,5 @@
-"""Weight bridge: a flax I3D variables tree ↔ the port's ``state_dict``.
+"""Weight bridges: flax variable trees ↔ the port's ``state_dict``s, for
+the I3D and the dual encoder.
 
 The torch modules are named after the flax tree (``models/i3d.py``), so the
 bridge is a name map plus layout changes:
@@ -14,12 +15,25 @@ gaps raise. :func:`i3d_torch_to_flax` is the inverse, for writing the
 trainer's checkpoint format from the port. :func:`i3d_opt_state_to_flax` and
 :func:`i3d_opt_state_from_flax` carry the optimizer state (the momentum
 trace or Adam's moments, and the counts) the same way.
+
+The dual encoder's bridge (:func:`dual_flax_to_torch`,
+:func:`dual_torch_to_flax`, for ``DualEncoderAU_LMK`` and ``LMKDisc``,
+``models/dual_encoder.py``) maps the params tree alone (the model has no
+batch statistics): ``Dense`` kernels ``[in, out]`` → ``weight [out, in]``;
+the attention's ``query``/``key``/``value`` kernels ``[D, H, D/H]`` and
+biases ``[H, D/H]`` → ``[D, D]`` / ``[D]``, its ``out`` kernel
+``[H, D/H, D]`` → ``[D, D]``; the depthwise ``temporal{i}`` kernels
+``[3, 1, D]`` → ``[D, 1, 3]``; the ``pointwise`` 1-tap conv ``[1, D, D]`` →
+a ``[D, D]`` weight; LayerNorm ``scale`` → ``weight``; the pooling query
+``v`` as it is. :func:`dual_opt_state_to_flax` and
+:func:`dual_opt_state_from_flax` carry the trainer's AdamW state (optax's
+``mu``, ``nu`` and ``count``).
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +48,18 @@ def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...
             yield from _leaves(v, prefix + (str(k),))
         else:
             yield prefix + (str(k),), np.asarray(v)
+
+
+def _check_covers(out: Mapping, model: torch.nn.Module, what: str) -> None:
+    """Raise unless ``out`` has exactly ``model.state_dict()``'s keys and
+    shapes."""
+    want = model.state_dict()
+    missing = sorted(set(want) - set(out))
+    extra = sorted(set(out) - set(want))
+    bad = sorted(k for k in set(want) & set(out) if tuple(want[k].shape) != tuple(out[k].shape))
+    if missing or extra or bad:
+        raise ValueError(f"{what} do not match the model: missing={missing[:8]} "
+                         f"extra={extra[:8]} shape_mismatch={bad[:8]}")
 
 
 def i3d_flax_to_torch(variables, model: Optional[torch.nn.Module] = None
@@ -70,14 +96,7 @@ def i3d_flax_to_torch(variables, model: Optional[torch.nn.Module] = None
     if leftover:
         raise ValueError(f"unconsumed flax leaves: {['/'.join(p) for p in leftover[:8]]}")
     if model is not None:
-        want = model.state_dict()
-        missing = sorted(set(want) - set(out))
-        extra = sorted(set(out) - set(want))
-        bad = sorted(k for k in set(want) & set(out) if tuple(want[k].shape) != tuple(out[k].shape))
-        if missing or extra or bad:
-            raise ValueError(
-                f"flax variables do not match the model: missing={missing[:8]} "
-                f"extra={extra[:8]} shape_mismatch={bad[:8]}")
+        _check_covers(out, model, "flax variables")
     return out
 
 
@@ -113,23 +132,27 @@ def i3d_torch_to_flax(state_dict: Mapping) -> Dict[str, dict]:
     return out
 
 
-# The optimizer chain's state (``train/engine_i3d.py``): a tuple with one
-# dict per transform, laid out as flax's ``to_state_dict`` writes optax's
-# state; the per-parameter trees ("trace", "mu", "nu") are keyed by the
-# port's parameter names here and by the flax tree in a checkpoint.
+# The optimizer chain's state (``train/optim.py``): a tuple with one dict per
+# transform (a nested chain is a nested tuple), laid out as flax's
+# ``to_state_dict`` writes optax's state; the per-parameter trees ("trace",
+# "mu", "nu") are keyed by the port's parameter names here and by the flax
+# tree in a checkpoint.
 _OPT_TREES = ("trace", "mu", "nu")
 
 
-def i3d_opt_state_to_flax(opt_state) -> Dict[str, dict]:
-    """The port's optimizer state → the JAX trainer's ``opt_state`` tree:
-    ``{"0": {...}, "1": {...}, ...}`` with flax-named parameter trees
-    (float32) and int32 ``count`` scalars."""
+def opt_state_to_flax(opt_state, params_to_flax: Callable[[Mapping], dict]) -> Dict[str, dict]:
+    """The port's optimizer state → optax's state dict: ``{"0": {...},
+    "1": {...}, ...}``, each parameter tree through ``params_to_flax``
+    (float32), each ``count`` an int32 scalar."""
     out = {}
     for i, entry in enumerate(opt_state):
+        if isinstance(entry, tuple):
+            out[str(i)] = opt_state_to_flax(entry, params_to_flax)
+            continue
         node = {}
         for key, v in entry.items():
             if key in _OPT_TREES:
-                node[key] = i3d_torch_to_flax(v)["params"]
+                node[key] = params_to_flax(v)
             elif key == "count":
                 node[key] = np.asarray(v, np.int32)
             elif key == "inner_state" and v == {}:
@@ -140,24 +163,27 @@ def i3d_opt_state_to_flax(opt_state) -> Dict[str, dict]:
     return out
 
 
-def i3d_opt_state_from_flax(tree: Mapping, like):
-    """A checkpoint's ``opt_state`` tree → the port's optimizer state, in
-    the structure, dtypes and devices of ``like`` (the chain's ``init``).
-    A checkpoint of another chain (other transforms, other fields or other
-    parameters) raises."""
+def opt_state_from_flax(tree: Mapping, like, params_from_flax: Callable[[Mapping], dict]):
+    """optax's state dict → the port's optimizer state, in the structure,
+    dtypes and devices of ``like`` (the chain's ``init``); each parameter
+    tree through ``params_from_flax``. A checkpoint of another chain (other
+    transforms, other fields or other parameters) raises."""
     if sorted(tree, key=int) != [str(i) for i in range(len(like))]:
         raise ValueError(f"checkpoint opt_state has entries {sorted(tree)}, the optimizer "
                          f"{len(like)}")
     out = []
     for i, entry in enumerate(like):
         src = tree[str(i)]
+        if isinstance(entry, tuple):
+            out.append(opt_state_from_flax(src, entry, params_from_flax))
+            continue
         if set(src) != set(entry):
             raise ValueError(f"opt_state entry {i}: checkpoint fields {sorted(src)}, "
                              f"optimizer fields {sorted(entry)}")
         node = {}
         for key, v in entry.items():
             if key in _OPT_TREES:
-                got = i3d_flax_to_torch({"params": src[key]})
+                got = params_from_flax(src[key])
                 if set(got) != set(v) or any(got[k].shape != v[k].shape for k in v):
                     raise ValueError(f"opt_state entry {i} {key!r} does not match the "
                                      "model's parameters")
@@ -169,3 +195,97 @@ def i3d_opt_state_from_flax(tree: Mapping, like):
         out.append(node)
     return tuple(out)
 
+
+def i3d_opt_state_to_flax(opt_state) -> Dict[str, dict]:
+    """The I3D trainer's optimizer state → its ``opt_state`` checkpoint tree."""
+    return opt_state_to_flax(opt_state, lambda t: i3d_torch_to_flax(t)["params"])
+
+
+def i3d_opt_state_from_flax(tree: Mapping, like):
+    """An I3D checkpoint's ``opt_state`` tree → the port's optimizer state."""
+    return opt_state_from_flax(tree, like, lambda t: i3d_flax_to_torch({"params": t}))
+
+
+# -- the dual encoder ---------------------------------------------------------------
+
+_QKV = ("query", "key", "value")
+
+
+def dual_flax_to_torch(params: Mapping, model: Optional[torch.nn.Module] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """A ``DualEncoderAU_LMK`` / ``LMKDisc`` params tree (nested mappings of
+    arrays, no ``"params"`` wrapper) → the port's ``state_dict`` (float32
+    CPU tensors; float64 leaves stay float64). With ``model``, every key
+    and shape is checked against ``model.state_dict()``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(params):
+        mod, leaf = path[:-1], path[-1]
+        a = np.asarray(arr)
+        a = a.astype(np.float64 if a.dtype == np.float64 else np.float32)
+        last = mod[-1] if mod else ""
+        if leaf == "kernel":
+            if last in _QKV:
+                a = a.reshape(a.shape[0], -1).T
+            elif last == "out":
+                a = a.reshape(-1, a.shape[-1]).T
+            elif last.startswith("temporal"):
+                a = a.transpose(2, 1, 0)
+            elif last == "pointwise":
+                a = a[0].T
+            else:
+                a = a.T
+            leaf = "weight"
+        elif leaf == "bias" and last in _QKV:
+            a = a.reshape(-1)
+        elif leaf == "scale":
+            leaf = "weight"
+        elif leaf not in ("bias", "v"):
+            raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
+        out[".".join(mod + (leaf,))] = torch.from_numpy(np.ascontiguousarray(a))
+    if model is not None:
+        _check_covers(out, model, "flax params")
+    return out
+
+
+def dual_torch_to_flax(state_dict: Mapping, heads: int) -> Dict[str, dict]:
+    """The inverse of :func:`dual_flax_to_torch`: the port's ``state_dict``
+    (or any ``{name: tensor}`` tree over its parameters, such as Adam's
+    moments) → the flax params tree of numpy arrays (float32, float64 kept);
+    ``heads`` splits the attention's ``[D, D]`` weights."""
+    out: Dict[str, dict] = {}
+    for key, t in state_dict.items():
+        *mod, leaf = key.split(".")
+        a = t.detach().cpu()
+        a = (a if a.dtype == torch.float64 else a.float()).numpy()
+        last = mod[-1] if mod else ""
+        if leaf == "weight" and a.ndim == 1:
+            leaf = "scale"
+        elif leaf == "weight":
+            if last in _QKV:
+                a = a.T.reshape(a.shape[1], heads, -1)
+            elif last == "out":
+                a = a.T.reshape(heads, -1, a.shape[0])
+            elif last.startswith("temporal"):
+                a = a.transpose(2, 1, 0)
+            elif last == "pointwise":
+                a = a.T[None]
+            else:
+                a = a.T
+            leaf = "kernel"
+        elif leaf == "bias" and last in _QKV:
+            a = a.reshape(heads, -1)
+        node = out
+        for m in mod:
+            node = node.setdefault(m, {})
+        node[leaf] = a
+    return out
+
+
+def dual_opt_state_to_flax(opt_state, heads: int) -> Dict[str, dict]:
+    """The dual trainer's optimizer state → optax's state dict."""
+    return opt_state_to_flax(opt_state, lambda t: dual_torch_to_flax(t, heads))
+
+
+def dual_opt_state_from_flax(tree: Mapping, like):
+    """optax's state dict of the dual trainer → the port's optimizer state."""
+    return opt_state_from_flax(tree, like, dual_flax_to_torch)

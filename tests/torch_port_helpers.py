@@ -10,7 +10,9 @@ side.
 
 from __future__ import annotations
 
+import contextlib
 from collections.abc import Mapping
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -107,3 +109,27 @@ def port_i3d_variables(cfg, seed: int = 0) -> dict:
     rng = np.random.RandomState(seed + 1)
     return {"params": randomize_bn(v["params"], rng),
             "batch_stats": randomize_bn(v["batch_stats"], rng)}
+
+
+@contextlib.contextmanager
+def flax_without_dropout():
+    """flax's ``nn.Dropout`` as the identity while the block runs. The JAX
+    dual encoder's binary head drops out at a fixed rate of 0.2 whenever it
+    trains, and torch cannot draw flax's mask; the step parity runs both
+    sides without dropout (the port's ``model.head_dropout = 0``). JAX
+    functions traced inside the block keep the identity when called later."""
+    import flax.linen as nn
+    import pytest
+
+    class Identity(nn.Module):
+        rate: float = 0.0
+        broadcast_dims: Sequence[int] = ()
+        deterministic: Optional[bool] = None
+        rng_collection: str = "dropout"
+
+        def __call__(self, inputs, deterministic=None, rng=None):
+            return inputs
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(nn, "Dropout", Identity)
+        yield
