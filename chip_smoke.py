@@ -97,7 +97,28 @@ exits non-zero without its result line):
               profiler's busy share, and the host's ``load_all``;
 16. dual_f32 — one float32 step of the dual trainer on the card against
               the same step on the CPU (dropout 0, the same SLERP draws),
-              within ``DUAL_F32_TOLS``.
+              within ``DUAL_F32_TOLS``;
+17. landmarker — the packaged dense landmarker (``LandmarkNet``, width 32)
+              on 16 faces rendered on the card from seeded parameters: the
+              same net on the CPU (``LANDMARK_TOLS``), the key-landmark
+              error against the renderer's mesh (< 0.01 crop-normalized),
+              faces/s at batch 1 and 16 and of the whole per-face call;
+18. au      — the AU ResNet-18 at 224² on random weights bridged through
+              the flax tree, on the card against the CPU (``AU_TOL``);
+              faces/s at batch 4 and 16;
+19. preprocess — ``PreprocessPipeline.process_video`` over 64 frames of a
+              1080p ``BenchScene`` with 4 faces (a .y4m written before the
+              clock starts), with the packaged landmarker, the AU model and
+              ``detect_scaled`` on the YuNet-shaped random graph for its
+              device cost returning the scene's oracle rows
+              (``"detections_real": false``): 4 unflagged tracks, 60 clips,
+              landmarks within ``PRE_PX_TOL`` of the mesh, the tree turned
+              into features, loaded by ``DualFeaturesClipDataset`` and
+              scored by the dual model; frames/s and the stage times; K1/K2
+              unlaunched; then the CLI ``main`` over the same file;
+20. landmarker_train — ``train_landmarker.train`` at the shipped batch of
+              256 for 60 steps: the loss must fall; the step's device time,
+              peak memory, the profiler's busy share and ``holdout_error``.
 
 The K2 phases (10) run before the scorer (4) in the script, as they did.
 Every measurement is printed as one JSON object per line; then the
@@ -107,6 +128,7 @@ Every measurement is printed as one JSON object per line; then the
 
 from __future__ import annotations
 
+import csv
 import glob
 import json
 import logging
@@ -1850,6 +1872,287 @@ def phase_dual(dev, smi: str, tmp_dir: str) -> None:
             raise AssertionError(f"dual_f32: float32 card vs CPU {key} {f32[key]} > {tol}")
 
 
+# -- the data-production plane: landmarker, AU ResNet-18, preprocess, trainer ----
+
+# bounds written before the first card run of these phases. The packaged
+# landmarker and the AU model on the card against the same weights on the
+# CPU, float32 with TF32 off: 1e-4 on the crop-normalized points, theta and
+# AU activations (convolution sums in another order; the CPU tests hold the
+# port to JAX at 1e-5). The landmarker's key-landmark error against the
+# renderer's ground truth: < 0.01 crop-normalized, JAX's own bound
+# (tests/test_facemesh.py:181).
+LANDMARK_FACES = 16
+LANDMARK_TOLS = {"card_vs_cpu_points": 1e-4, "card_vs_cpu_theta": 1e-4, "key_err": 0.01}
+AU_TOL = 1e-4
+# preprocess: 64 frames of a 1080p BenchScene with 4 faces; clip 8, step 4
+# → 15 clips a track. The dense landmarks of the clip tree against the
+# renderer's mesh of the same face and frame: mean |Δ| over the key
+# landmarks ≤ PRE_PX_TOL frame pixels (faces of 288 px; the landmarker's
+# 0.01 crop-normalized bound is ~3.7 px of its 374-px crop)
+PRE_HW, PRE_FRAMES, PRE_FACES = (1080, 1920), 64, 4
+PRE_PX_TOL = 4.0
+# landmarker training at the shipped batch
+LMT_BATCH, LMT_STEPS, LMT_TIMED = 256, 60, 10
+
+
+def phase_landmarker(dev, smi: str):
+    """The packaged ``LandmarkNet`` (width 32) on 16 faces rendered on the
+    card from seeded parameters: the same net on the CPU (float32, TF32
+    off), the key-landmark error against the renderer's mesh, and faces/s
+    of the forward at batch 1 and 16 (CUDA events) and of the whole
+    ``DenseLandmarker`` call on a frame (host crop and resize, forward,
+    copy back; host clock)."""
+    from stdd_torch.models.facemesh import (DenseLandmarker, canonical_mesh, reconstruct,
+                                            render_faces, sample_params)
+    from stdd_torch.train.train_landmarker import _key_indices
+
+    gen = torch.Generator(dev).manual_seed(SEED)
+    rigid, theta, style = sample_params(gen, LANDMARK_FACES, device=dev)
+    imgs = render_faces(rigid, theta, style)
+    lm = DenseLandmarker.pretrained(device=dev)
+    lm_cpu = DenseLandmarker.pretrained(device="cpu")
+    pg, tg = lm.forward(imgs)
+    pc, tc = lm_cpu.forward(imgs.cpu())
+    key = torch.as_tensor(_key_indices(), dtype=torch.long)
+    gt = reconstruct(torch.from_numpy(canonical_mesh()), rigid.cpu(), theta.cpu())[:, key]
+    r = {"phase": "landmarker", "card": smi, "faces": LANDMARK_FACES, "width": 32,
+         "card_vs_cpu_points": float((pg.cpu() - pc).abs().max()),
+         "card_vs_cpu_theta": float((tg.cpu() - tc).abs().max()),
+         "key_err": float((pg.cpu()[:, key] - gt).abs().mean()),
+         "key_err_cpu": float((pc[:, key] - gt).abs().mean())}
+    canon = torch.from_numpy(canonical_mesh()).to(dev)
+    with torch.no_grad():
+        for B in (1, 16):
+            ms = event_ms(lambda: lm.forward(imgs[:B]), reps=20)
+            r[f"forward_ms_b{B}"] = ms
+            r[f"faces_per_s_b{B}"] = B * 1000.0 / ms
+            # the split: the CNN alone, and the mesh reconstruction alone
+            r[f"net_ms_b{B}"] = event_ms(lambda: lm.net(imgs[:B]), reps=20)
+            r[f"reconstruct_ms_b{B}"] = event_ms(
+                lambda: reconstruct(canon, rigid[:B], theta[:B]), reps=20)
+    frame = (imgs[0].cpu().numpy() * 255).astype(np.uint8)
+    frame = np.ascontiguousarray(np.repeat(np.repeat(frame, 3, 0), 3, 1))   # a 384-px face
+    call_ms = wall_ms(lambda: lm(frame, (40, 40, 344, 344)), 20)
+    r["call_ms"] = call_ms
+    r["call_faces_per_s"] = 1000.0 / call_ms
+    emit(r)
+    for k, tol in LANDMARK_TOLS.items():
+        if not r[k] <= tol:
+            raise AssertionError(f"landmarker: {k} {r[k]} > {tol}")
+
+
+def phase_au(dev, smi: str):
+    """AU ResNet-18 at 224² with random weights, bridged through the flax
+    tree, on the card against the same weights on the CPU; faces/s at batch
+    4 and 16 (preprocess + forward, CUDA events)."""
+    from stdd_torch.models.au_resnet import AUExtractor, preprocess_faces
+    from stdd_torch.utils.weights import conv2d_torch_to_flax
+
+    cpu = AUExtractor.random_init(seed=SEED, device="cpu")
+    au = AUExtractor(conv2d_torch_to_flax(cpu.model.state_dict()), device=dev)
+    faces = np.random.RandomState(SEED).randint(0, 256, (16, 224, 224, 3), np.uint8)
+    err = float(np.abs(au.activations(faces[:8]) - cpu.activations(faces[:8])).max())
+    r = {"phase": "au", "card": smi, "model": "AUResNet18", "input": 224,
+         "weights": "random", "card_vs_cpu_act": err}
+    x = torch.from_numpy(faces).to(dev)
+    with torch.no_grad():
+        for B in (4, 16):
+            ms = event_ms(lambda: au.model(preprocess_faces(x[:B])), reps=10)
+            r[f"ms_b{B}"] = ms
+            r[f"faces_per_s_b{B}"] = B * 1000.0 / ms
+    r["call_ms_b4"] = wall_ms(lambda: au(faces[:4]), 10)
+    emit(r)
+    if not err <= AU_TOL:
+        raise AssertionError(f"au: card vs CPU activations {err} > {AU_TOL}")
+    return au
+
+
+def landmark_px_error(tree: str, scene) -> dict:
+    """Mean |Δ| (frame px) over the key landmarks between the clip tree's
+    dense landmarks and the renderer's mesh of the same face and frame; a
+    track is matched to the face whose mesh lies nearest its first
+    frame."""
+    from stdd_torch.train.train_landmarker import _key_indices
+
+    key = _key_indices()
+    errs, per_track = [], {}
+    for clip in sorted(glob.glob(os.path.join(tree, "**", "track_*", "clip_*"), recursive=True)):
+        lms = np.load(os.path.join(clip, "landmarks.npy"), allow_pickle=True)
+        fids = np.load(os.path.join(clip, "frame_ids.npy"))
+        track = os.path.basename(os.path.dirname(clip))
+        for pts, fid in zip(lms, fids):
+            mesh = scene.mesh(int(fid))
+            face = int(np.argmin(np.abs(mesh.mean(axis=1) - np.asarray(pts).mean(axis=0)).sum(1)))
+            per_track.setdefault(track, set()).add(face)
+            errs.append(float(np.abs(np.asarray(pts, np.float32)[key] - mesh[face][key]).mean()))
+    return {"mean_px": float(np.mean(errs)), "max_frame_px": float(np.max(errs)),
+            "frames": len(errs), "faces_per_track": {k: sorted(v) for k, v in per_track.items()}}
+
+
+def phase_preprocess(dev, smi: str, tmp_dir: str, au):
+    """``PreprocessPipeline.process_video`` on a 1080p BenchScene with 4
+    faces (64 frames written to a .y4m before any clock starts), with the
+    packaged landmarker, the AU model and a detector that runs
+    ``detect_scaled`` on the YuNet-shaped random graph for its device cost
+    and returns the scene's oracle rows. Then the tree is checked (tracks,
+    clips, sentinel, landmarks against the mesh), converted to features,
+    loaded in ``DualFeaturesClipDataset`` and scored by the dual model; and
+    the CLI ``main`` runs once over the same file on the random graph."""
+    from stdd_torch.data import preprocess as pre
+    from stdd_torch.data.dataset import DualFeaturesClipDataset
+    from stdd_torch.data.features import compute_norm_stats, process_clip_tree
+    from stdd_torch.eval.bench_scene import BenchScene
+    from stdd_torch.models.dual_encoder import DualEncoderAU_LMK
+    from stdd_torch.models.facemesh import DenseLandmarker
+    from stdd_torch.train.engine_dual import collect_logits
+    from stdd_torch.utils.video_io import read_y4m, write_y4m
+
+    scene = BenchScene(PRE_HW, n_faces=PRE_FACES, seed=SEED, device=dev)
+    vids = os.path.join(tmp_dir, "videos")
+    os.makedirs(vids)
+    video = os.path.join(vids, "scene.y4m")
+    write_y4m(video, (scene.frame(i) for i in range(PRE_FRAMES)))        # set-up, not timed
+    onnx = write_onnx(yunet_shaped_graph(SEED), os.path.join(tmp_dir, "yunet_shaped.onnx"))
+    det = YuNet(onnx, device=dev)
+    count = {"i": 0}
+
+    def detect_fn(frame):
+        detect_scaled(det, frame)                    # the detector's device cost
+        rows = scene.oracle(count["i"])
+        count["i"] += 1
+        return rows
+
+    lm = DenseLandmarker.pretrained(device=dev)
+    pipe = pre.PreprocessPipeline(detect_fn, au_extractor=au, landmarker=lm)
+    detect_fn(scene.frame(0))                        # warm-up: cuDNN picks its algorithms
+    au(np.zeros((PRE_FACES, 224, 224, 3), np.uint8))
+    lm(scene.frame(0), (100, 100, 400, 400))
+    count["i"] = 0
+    tree = os.path.join(tmp_dir, "clips")
+    writer = pre.ClipWriter(tree)
+    torch.cuda.synchronize()
+    fused_bottleneck.launches = warp_affine.launches = 0      # the preprocess path starts here
+    perf = pipe.process_video(video, writer, "scene")
+    writer.close()
+    k1, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+    with open(os.path.join(tree, "master_clip_log.csv")) as f:
+        log = list(csv.DictReader(f))
+    tracks = sorted({r["track_id"] for r in log})
+    want_clips = PRE_FACES * ((PRE_FRAMES - pre.CLIP_LENGTH) // pre.CLIP_STEP + 1)
+    px = landmark_px_error(tree, scene)
+    feats = process_clip_tree(tree)
+    stats_path = compute_norm_stats(tree, os.path.join(tree, "norm_stats.npz"))
+    ds = DualFeaturesClipDataset(root_dir=tree, T=8)
+    data = ds.load_all()
+    model = DualEncoderAU_LMK(seed=SEED).to(dev).eval()
+    logits, _ = collect_logits(model, data)
+    del model
+
+    # the host's share that no stage clock covers: decoding the file alone
+    t0 = time.perf_counter()
+    n_read = sum(1 for _ in read_y4m(video))
+    decode_s = time.perf_counter() - t0
+
+    argv = ["--video_root", vids, "--out_dir", os.path.join(tmp_dir, "cli"), "--yunet_model",
+            onnx, "--au_ckpt", "random", "--features", "--device", str(dev)]
+    t0 = time.perf_counter()
+    cli_logs = pre.main(argv)
+    cli_s = time.perf_counter() - t0
+
+    r = {"phase": "preprocess", "card": smi, "frame_hw": list(PRE_HW), "faces": PRE_FACES,
+         "frames": perf["frames"], "clips": perf["clips"], "clips_expected": want_clips,
+         "tracks": len(tracks), "flagged_clips": sum(r["lm_flagged"] == "True" for r in log),
+         "frames_per_s": perf["frames"] / perf["t_total"],
+         **{k: perf[k] for k in ("t_detect", "t_au", "t_landmark", "t_total")},
+         "t_decode_alone": decode_s, "frames_decoded_alone": n_read,
+         "landmarks_vs_mesh_px": px, "features": feats, "norm_stats": os.path.basename(stats_path),
+         "dataset_clips": len(ds), "dual_logits_finite": bool(np.isfinite(logits).all()),
+         "dual_logits_shape": list(logits.shape), "detections_real": False,
+         "detector": "YuNet-shaped graph, random weights (device cost); BenchScene.oracle rows",
+         "au_weights": "random", "k1_launches": k1, "k2_launches": k2,
+         "cli_seconds": cli_s, "cli_frames": sum(l["frames"] for l in cli_logs),
+         "cli_clips": sum(l["clips"] for l in cli_logs), "writer_errors": len(writer.errors)}
+    emit(r)
+    if k1 or k2:
+        raise AssertionError(f"preprocess: K1/K2 launched {k1}/{k2} times on the preprocess path")
+    if perf["frames"] != PRE_FRAMES or len(tracks) != PRE_FACES or perf["clips"] != want_clips:
+        raise AssertionError(f"preprocess: {perf['frames']} frames, {len(tracks)} tracks, "
+                             f"{perf['clips']} clips (want {PRE_FRAMES}, {PRE_FACES}, {want_clips})")
+    if r["flagged_clips"] or writer.errors:
+        raise AssertionError(f"preprocess: {r['flagged_clips']} flagged clips, "
+                             f"{len(writer.errors)} failed writes")
+    if any(len(v) != 1 for v in px["faces_per_track"].values()):
+        raise AssertionError(f"preprocess: a track changed faces: {px['faces_per_track']}")
+    if not px["mean_px"] <= PRE_PX_TOL:
+        raise AssertionError(f"preprocess: landmarks {px['mean_px']} px from the mesh > {PRE_PX_TOL}")
+    if feats["lmk_ok"] != want_clips or feats["au_ok"] != want_clips or len(ds) != want_clips:
+        raise AssertionError(f"preprocess: features {feats}, dataset {len(ds)} clips")
+    if not r["dual_logits_finite"] or logits.shape[0] != want_clips:
+        raise AssertionError(f"preprocess: dual logits {logits.shape}, finite {r['dual_logits_finite']}")
+    if r["cli_frames"] != PRE_FRAMES:
+        raise AssertionError(f"preprocess: the CLI read {r['cli_frames']} frames")
+
+
+def phase_landmarker_train(dev, smi: str):
+    """``train_landmarker.train`` on the card at the shipped batch of 256
+    for LMT_STEPS steps (render, augment, forward, backward, Adam on the
+    cosine schedule): the loss must fall. Then the step's device time on the
+    trained net (CUDA events), peak memory and ``holdout_error``."""
+    from stdd_torch.models.facemesh import canonical_mesh
+    from stdd_torch.train import optim
+    from stdd_torch.train import train_landmarker as tl
+
+    fused_bottleneck.launches = warp_affine.launches = 0
+    t0 = time.perf_counter()
+    lm = tl.train(steps=LMT_STEPS, batch=LMT_BATCH, log_every=1, verbose=True, device=dev)
+    seconds = time.perf_counter() - t0
+    k1, k2 = warp_affine.launches, fused_bottleneck.launches
+    hist = lm.history
+    net = lm.net.train()
+    tx = optim.adam(optim.cosine_decay_schedule(3e-4, 1000, alpha=0.1))
+    state = tx.init(dict(net.named_parameters()))
+    step = tl.make_train_step(net, tx, torch.from_numpy(canonical_mesh()).to(dev),
+                              tl._key_indices(), batch=LMT_BATCH)
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    for _ in range(3):
+        state, loss, _ = step(state, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in range(LMT_TIMED)]
+    for a, b in evs:
+        a.record()
+        state, loss, _ = step(state, gen)
+        b.record()
+    torch.cuda.synchronize()
+    step_ms = np.array([a.elapsed_time(b) for a, b in evs])
+    peak = torch.cuda.max_memory_allocated()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(3):
+            state, loss, _ = step(state, gen)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t1) * 1000
+    busy_ms, top = device_busy(prof, steps=3)
+    n_kernels = sum(1 for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 3
+    net.eval()
+    first, last = float(np.mean(hist[:5])), float(np.mean(hist[-5:]))
+    r = {"phase": "landmarker_train", "card": smi, "batch": LMT_BATCH, "steps": LMT_STEPS,
+         "seconds_train": seconds, "loss_first5": first, "loss_last5": last, "loss": hist,
+         "step_ms_median": float(np.median(step_ms)), "step_ms_p90": float(np.percentile(step_ms, 90)),
+         "faces_per_s": LMT_BATCH * 1000.0 / float(np.median(step_ms)),
+         "max_memory_allocated_gib": peak / 2 ** 30, "device_busy_share": busy_ms / prof_wall_ms,
+         "kernels_per_step": n_kernels, "top_kernels_ms_per_step": top,
+         "holdout_error": tl.holdout_error(lm), "k1_launches": k1, "k2_launches": k2}
+    emit(r)
+    if not np.isfinite(hist).all() or not last < first:
+        raise AssertionError(f"landmarker_train: the loss did not fall ({first} → {last})")
+    if k1 or k2:
+        raise AssertionError(f"landmarker_train: K1/K2 launched {k1}/{k2} times")
+
+
 def timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -1915,6 +2218,12 @@ def main() -> None:
         del trained16
     with tempfile.TemporaryDirectory() as tmp_dir:
         phase_dual(dev, smi, tmp_dir)
+    phase_landmarker(dev, smi)
+    au = phase_au(dev, smi)
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        phase_preprocess(dev, smi, tmp_dir, au)
+    del au
+    phase_landmarker_train(dev, smi)
 
     # each kernel's numbers at the shape its path launched it with: K1 at
     # the engine's N; K2 at score_dense's batch of 8 clips, per launch over

@@ -45,20 +45,26 @@ def upload_format_of(scorer) -> str:
 
 
 def rgb_to_i420(rgb: np.ndarray, out: np.ndarray) -> None:
-    """RGB uint8 [S, S, 3] (S % 4 == 0) → planar I420 ``out`` [S*3//2, S]:
-    the Y plane, then U and V at quarter size. Bit-exact with
-    ``cv2.cvtColor(rgb, cv2.COLOR_RGB2YUV_I420)``: Q20 BT.601 video range,
-    chroma taken from the top-left pixel of each 2×2 block."""
-    S = rgb.shape[0]
+    """RGB uint8 [H, W, 3] (even sides) → planar I420 in ``out``, a
+    contiguous array of H*W*3//2 bytes in any shape (the engine's slots are
+    [S*3//2, S] with S % 4 == 0): the Y plane, then U and V at quarter size.
+    Bit-exact with ``cv2.cvtColor(rgb, cv2.COLOR_RGB2YUV_I420)``: Q20 BT.601
+    video range, chroma taken from the top-left pixel of each 2×2 block."""
+    H, W = rgb.shape[:2]
+    flat = out.reshape(-1)
+    if not np.may_share_memory(flat, out) or flat.size != H * W * 3 // 2:
+        raise ValueError(f"rgb_to_i420: out must be a contiguous buffer of {H * W * 3 // 2} "
+                         f"bytes, got shape {out.shape}")
     c = rgb.astype(np.int32)
     r, g, b = c[..., 0], c[..., 1], c[..., 2]
     y = (_CRY * r + _CGY * g + _CBY * b + (_HALF + (16 << _SHIFT))) >> _SHIFT
-    out[:S] = y
+    n, q = H * W, (H // 2) * (W // 2)
+    flat[:n] = y.reshape(-1)
     r2, g2, b2 = r[::2, ::2], g[::2, ::2], b[::2, ::2]
     u = (_CRU * r2 + _CGU * g2 + _CBU * b2 + (_HALF + (128 << _SHIFT))) >> _SHIFT
     v = (_CBU * r2 + _CGV * g2 + _CBV * b2 + (_HALF + (128 << _SHIFT))) >> _SHIFT
-    out[S:S + S // 4] = np.clip(u, 0, 255).reshape(S // 4, S)
-    out[S + S // 4:] = np.clip(v, 0, 255).reshape(S // 4, S)
+    flat[n:n + q] = np.clip(u, 0, 255).reshape(-1)
+    flat[n + q:] = np.clip(v, 0, 255).reshape(-1)
 
 
 def _encode_slot_yuv420(e, rgb_slot: np.ndarray, s: float, out: np.ndarray):

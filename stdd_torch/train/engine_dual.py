@@ -49,7 +49,8 @@ from .altfreeze import (AltFreezeCfg, active_mask_from_labels, dual_labels, dual
                         dual_phase_active, masked_update)
 from .losses import (alignment, bce_with_logits, binary_focal_loss, noisy_or_group_logits,
                      temporal_infonce, uniformity)
-from .optim import GradientTransformation, adamw, chain, clip_by_global_norm, global_norm, identity
+from .optim import (GradientTransformation, adamw, chain, clip_by_global_norm, cosine_decay_schedule,
+                    global_norm, identity)
 from .step import TrainState, fold_in
 
 Schedule = Union[float, Callable[[int], float]]
@@ -363,15 +364,6 @@ def cosine_onecycle_schedule(transition_steps: int, peak_value: float, pct_start
         "cosine", peak_value / div_factor,
         {int(pct_start * transition_steps): div_factor,
          int(transition_steps): 1.0 / (div_factor * final_div_factor)})
-
-
-def cosine_decay_schedule(init_value: float, decay_steps: int) -> Callable[[int], float]:
-    """``optax.cosine_decay_schedule(init_value, decay_steps)``."""
-    def schedule(count: int) -> float:
-        count = min(float(count), float(decay_steps))
-        return init_value * 0.5 * (1 + math.cos(math.pi * count / decay_steps))
-
-    return schedule
 
 
 def make_schedule(args: DualTrainArgs, steps_per_epoch: int) -> Schedule:

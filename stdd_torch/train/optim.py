@@ -2,7 +2,8 @@
 
 The transforms the JAX trainers chain (``optax.clip_by_global_norm``,
 ``add_decayed_weights``, ``trace``, ``scale_by_adam``,
-``scale_by_learning_rate``, ``identity``, ``chain`` and ``adamw``), each
+``scale_by_learning_rate``, ``identity``, ``chain``, ``adam`` and
+``adamw``) and ``cosine_decay_schedule``, each
 with optax's arithmetic in optax's order and its state laid out as flax's
 ``to_state_dict`` writes optax's: a ``chain`` is a tuple with one entry per
 transform (a nested chain a nested tuple), each a dict (``{}``,
@@ -14,6 +15,7 @@ model's parameter names; ``count`` is a host int.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import numpy as np
@@ -125,6 +127,22 @@ def scale_by_learning_rate(schedule: Union[float, Callable[[int], float]]
     return GradientTransformation(lambda params: {"count": 0}, update)
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0
+                          ) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule``: ``init · ((1 − α) · ½(1 + cos(π t/T))
+    + α)`` with ``t`` held at ``T`` after the last step (float64 on the
+    host; optax's jitted float32 differs by ~1e-7 relative)."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine_decay_schedule needs positive decay_steps, got {decay_steps}")
+
+    def schedule(count: int) -> float:
+        count = min(float(count), float(decay_steps))
+        cosine_decay = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+        return init_value * ((1 - alpha) * cosine_decay + alpha)
+
+    return schedule
+
+
 def chain(*txs: GradientTransformation) -> GradientTransformation:
     def init(params):
         return tuple(t.init(params) for t in txs)
@@ -139,12 +157,15 @@ def chain(*txs: GradientTransformation) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-
-
 def identity() -> GradientTransformation:
     """``optax.identity``: the updates unchanged, state ``{}``."""
     return GradientTransformation(lambda params: {}, lambda updates, state, params=None:
                                   (updates, state))
+
+
+def adam(schedule: Union[float, Callable[[int], float]]) -> GradientTransformation:
+    """``optax.adam``: ``scale_by_adam`` → ``scale_by_learning_rate``."""
+    return chain(scale_by_adam(), scale_by_learning_rate(schedule))
 
 
 def adamw(schedule: Union[float, Callable[[int], float]], weight_decay: float

@@ -28,6 +28,11 @@ a ``[D, D]`` weight; LayerNorm ``scale`` → ``weight``; the pooling query
 ``v`` as it is. :func:`dual_opt_state_to_flax` and
 :func:`dual_opt_state_from_flax` carry the trainer's AdamW state (optax's
 ``mu``, ``nu`` and ``count``).
+
+:func:`conv2d_flax_to_torch` and :func:`conv2d_torch_to_flax` carry the 2D
+conv nets of data production (the landmarker's ``LandmarkNet``, whose
+pickle both packages read and write, and the ``AUResNet18``): conv kernels
+HWIO ↔ OIHW, Dense kernels transposed, BatchNorm as above.
 """
 
 from __future__ import annotations
@@ -289,3 +294,71 @@ def dual_opt_state_to_flax(opt_state, heads: int) -> Dict[str, dict]:
 def dual_opt_state_from_flax(tree: Mapping, like):
     """optax's state dict of the dual trainer → the port's optimizer state."""
     return opt_state_from_flax(tree, like, dual_flax_to_torch)
+
+
+# -- 2D conv nets: the landmarker and the AU ResNet-18 -------------------------------
+
+def conv2d_flax_to_torch(variables: Mapping, model: torch.nn.Module, what: str
+                         ) -> Dict[str, torch.Tensor]:
+    """A flax tree of a 2D conv net (``{"params": ..., "batch_stats": ...}``
+    of numpy arrays; the landmarker's pickle, the JAX ``AUResNet18``'s
+    variables) → the ``state_dict`` of a port module named after it
+    (``LandmarkNet``, ``AUResNet18``; ``what`` names it in errors):
+    conv ``kernel`` HWIO → ``weight`` OIHW, Dense ``kernel`` ``[in, out]`` →
+    ``weight`` ``[out, in]``, BatchNorm ``scale`` → ``weight``, its
+    ``batch_stats`` ``mean``/``var`` → ``running_mean``/``running_var``.
+    Leftover leaves and entries the model lacks or misses raise."""
+    out: Dict[str, torch.Tensor] = {}
+    leftover = []
+    for coll in variables:
+        if coll not in ("params", "batch_stats"):
+            leftover.append((coll,))
+            continue
+        for path, arr in _leaves(variables[coll]):
+            mod, leaf = ".".join(path[:-1]), path[-1]
+            a = np.array(arr, np.float32)
+            if coll == "params" and leaf == "kernel" and a.ndim == 4:
+                out[f"{mod}.weight"] = torch.from_numpy(np.ascontiguousarray(a.transpose(3, 2, 0, 1)))
+            elif coll == "params" and leaf == "kernel" and a.ndim == 2:
+                out[f"{mod}.weight"] = torch.from_numpy(np.ascontiguousarray(a.T))
+            elif coll == "params" and leaf in _BN_PARAM:
+                out[f"{mod}.{_BN_PARAM[leaf]}"] = torch.from_numpy(a)
+            elif coll == "batch_stats" and leaf in _BN_STAT:
+                out[f"{mod}.{_BN_STAT[leaf]}"] = torch.from_numpy(a)
+                if leaf == "mean":
+                    out[f"{mod}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+            else:
+                leftover.append((coll,) + path)
+    if leftover:
+        raise ValueError(f"unconsumed flax leaves of the {what}: "
+                         f"{['/'.join(p) for p in leftover[:8]]}")
+    _check_covers(out, model, f"{what} variables")
+    return out
+
+
+def conv2d_torch_to_flax(state_dict: Mapping) -> Dict[str, dict]:
+    """The inverse of :func:`conv2d_flax_to_torch`: ``{"params": ...}``, and
+    ``"batch_stats"`` where the net has BatchNorm, of float32 numpy arrays.
+    A module with ``running_mean`` is a BatchNorm."""
+    bn = {k.rsplit(".", 1)[0] for k in state_dict if k.endswith(".running_mean")}
+    out: Dict[str, dict] = {}
+    for key, t in state_dict.items():
+        mod, leaf = key.rsplit(".", 1)
+        a = t.detach().cpu().float().numpy()
+        if leaf == "num_batches_tracked":
+            continue
+        coll = "params"
+        if mod in bn:
+            name = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                    "running_var": "var"}[leaf]
+            coll = "batch_stats" if leaf.startswith("running") else "params"
+        elif leaf == "weight":
+            name, a = "kernel", (a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T)
+        else:
+            name = leaf
+        node = out.setdefault(coll, {})
+        for m in mod.split("."):
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(a)
+    return out
+

@@ -284,3 +284,74 @@ def test_warp_wrapper_routes_cpu_tensors_to_plain_version():
         with pytest.raises(ValueError):
             warp_affine(c, p, 16)
     assert warp_affine.launches == before
+
+
+# -- the host side: warp_affine_u8 and align_clip_host ----------------------------
+# ``warp_affine_u8`` reproduces OpenCV 5.0's float32 bilinear warp: equal to
+# ``cv2.warpAffine`` (INTER_LINEAR) on all but fewer than 1 value in 10^4,
+# and those one grey level off (a rounding tie broken the other way;
+# measured 2.6e-5 with a constant and 8.2e-5 with a replicated border).
+
+WARP_MISS_SHARE = 1e-4
+
+
+def _random_affines(rng, n, shear):
+    out = []
+    for _ in range(n):
+        h, w = rng.randint(20, 160, 2)
+        img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        ang, s = rng.uniform(-0.6, 0.6), rng.uniform(0.5, 2.0)
+        M = np.array([[s * np.cos(ang), -s * np.sin(ang), rng.uniform(-30, 30)],
+                      [s * np.sin(ang), s * np.cos(ang), rng.uniform(-30, 30)]])
+        if shear:
+            M[0, 1] += rng.uniform(-0.3, 0.3)
+            M[1, 0] += rng.uniform(-0.3, 0.3)
+        out.append((img, M, tuple(int(v) for v in rng.randint(20, 160, 2))))
+    return out
+
+
+@pytest.mark.parametrize("border", ["constant", "replicate"])
+@pytest.mark.parametrize("shear", [False, True], ids=["similarity", "shear"])
+def test_warp_affine_u8_matches_cv2(border, shear):
+    mode = cv2.BORDER_CONSTANT if border == "constant" else cv2.BORDER_REPLICATE
+    rng = np.random.RandomState(7 + shear)
+    miss = total = 0
+    for img, M, (oh, ow) in _random_affines(rng, 24, shear):
+        want = cv2.warpAffine(img, M, (ow, oh), flags=cv2.INTER_LINEAR, borderMode=mode)
+        got = talign.warp_affine_u8(img, M, (oh, ow), border=border)
+        assert got.shape == want.shape and got.dtype == np.uint8
+        d = np.abs(got.astype(int) - want)
+        assert d.max() <= 1
+        miss += int((d > 0).sum())
+        total += d.size
+    assert miss / total < WARP_MISS_SHARE, miss / total
+    gray = rng.randint(0, 256, (30, 40)).astype(np.uint8)
+    M = np.array([[1.1, 0.1, 2.0], [-0.1, 0.9, 3.0]])
+    d = np.abs(talign.warp_affine_u8(gray, M, (25, 35)).astype(int)
+               - cv2.warpAffine(gray, M, (35, 25)))
+    assert d.max() <= 1
+    np.testing.assert_array_equal(talign.warp_affine_u8(img, np.eye(2, 3), img.shape[:2]), img)
+    with pytest.raises(ValueError, match="reflect"):
+        talign.warp_affine_u8(img, M, (8, 8), border="reflect")
+
+
+def test_align_clip_host_matches_jax():
+    rng = np.random.RandomState(3)
+    T = 8
+    boxes = np.zeros((T, 4), np.float32)
+    crops, lm5 = [], np.zeros((T, 5, 2), np.float32)
+    base = jalign.STD_POINTS_256 * 0.4 + 20.0
+    for t in range(T):
+        xy = rng.uniform(100, 130, 2)
+        hw = rng.randint(120, 140, 2)
+        boxes[t] = [xy[0], xy[1], xy[0] + hw[1], xy[1] + hw[0]]
+        crops.append(rng.randint(0, 256, (hw[0], hw[1], 3)).astype(np.uint8))
+        lm5[t] = base + rng.normal(0, 1.0, (5, 2))
+    np.testing.assert_array_equal(
+        talign.find_similarity_np(lm5.reshape(-1, 2), np.tile(jalign.STD_POINTS_256, (T, 1))),
+        jalign.find_similarity_np(lm5.reshape(-1, 2), np.tile(jalign.STD_POINTS_256, (T, 1))))
+    want = jalign.align_clip_host(crops, boxes, lm5, out_size=112)
+    got = talign.align_clip_host(crops, boxes, lm5, out_size=112)
+    assert got.shape == want.shape == (T, 112, 112, 3)
+    d = np.abs(got.astype(int) - want)
+    assert d.max() <= 1 and (d > 0).mean() < WARP_MISS_SHARE, (d.max(), (d > 0).mean())

@@ -251,3 +251,37 @@ def test_ring_path_on_card_matches_packed_path(cuda, fmt):
     assert warp_affine.launches > before
     assert len(ring) >= 10 and [t for t, _ in ring] == [t for t, _ in packed]
     assert np.abs(np.array([p for _, p in ring]) - np.array([p for _, p in packed])).max() <= 1e-5
+
+
+# -- the data-production plane: renderer, landmarker, AU ResNet-18 ----------------
+# float32 with TF32 off on both devices; convolutions and transcendentals sum
+# and round in another order on the card, so the bounds are 1e-4 (renders in
+# [0, 1], the landmarker's crop-normalized outputs, AU activations in [0, 1])
+
+def test_renderer_and_landmarker_on_card_match_cpu(cuda):
+    from stdd_torch.models.facemesh import DenseLandmarker, render_faces, sample_params
+
+    rigid, theta, style = sample_params(torch.Generator().manual_seed(0), 6)
+    cpu_imgs = render_faces(rigid, theta, style)
+    gpu_imgs = render_faces(rigid.to(cuda), theta.to(cuda), style.to(cuda))
+    assert float((gpu_imgs.cpu() - cpu_imgs).abs().max()) <= 2.5e-4
+    lm_gpu = DenseLandmarker.pretrained()
+    assert lm_gpu.device.type == "cuda"
+    lm_cpu = DenseLandmarker.pretrained(device="cpu")
+    pg, tg = lm_gpu.forward(cpu_imgs.to(cuda))
+    pc, tc = lm_cpu.forward(cpu_imgs)
+    assert float((pg.cpu() - pc).abs().max()) <= 1e-4
+    assert float((tg.cpu() - tc).abs().max()) <= 1e-4
+    frame = (cpu_imgs[0].numpy() * 255).astype(np.uint8)
+    assert np.abs(lm_gpu(frame, (10, 10, 110, 110)) - lm_cpu(frame, (10, 10, 110, 110))).max() <= 0.05
+
+
+def test_au_resnet_on_card_matches_cpu(cuda):
+    from stdd_torch.models.au_resnet import AUExtractor
+    from stdd_torch.utils.weights import conv2d_torch_to_flax
+
+    cpu = AUExtractor.random_init(seed=0, device="cpu")
+    gpu = AUExtractor(conv2d_torch_to_flax(cpu.model.state_dict()))
+    assert gpu.device.type == "cuda"
+    faces = np.random.RandomState(0).randint(0, 256, (4, 240, 200, 3), np.uint8)
+    assert np.abs(gpu.activations(faces) - cpu.activations(faces)).max() <= 1e-4
