@@ -119,10 +119,29 @@ exits non-zero without its result line):
 20. landmarker_train — ``train_landmarker.train`` at the shipped batch of
               256 for 60 steps: the loss must fall; the step's device time,
               peak memory, the profiler's busy share and ``holdout_error``.
+21. reference_ckpt — the scorer's weights (an RGB-upload scorer over the
+              main scorer's, 32×224² bf16) written as a reference-format
+              ``.pth`` and served by ``ClipScorer.from_torch_checkpoint``: the
+              same weights and probs (``REFERENCE_CKPT_TOL``);
+22. harness — ``stdd_torch.eval.harness``'s ``run_video`` → ``summarize``
+              → ``write_csvs`` over four 720p ``BenchScene`` videos (real/,
+              fake/; 96 frames, one face) at the JAX CLI's defaults (clip 32,
+              stride 5, detect every 4, batch 8), the scene's oracle as the
+              detector (``"detections_real": false``): 96 frames and one
+              track a video, scores in (0, 1), the CSV headers, K1 launches
+              equal to the scored batches; fps, latency, peak memory,
+              windows/s; then the CLI in its own process over a list file
+              with ``--ckpt`` = that ``.pth`` and YuNet on the random graph;
+23. demo    — ``stdd_torch.eval.demo.eval_video`` on the first video with
+              the oracle's detections in the cache layout: dense, then the
+              packed path over the same 65 windows at batch 8: the same
+              windows, ``dense_vs_packed_dp`` within ``DENSE_TOL``, one K1
+              launch a forward; the wall time of phases 21-23.
 
 The K2 phases (10) run before the scorer (4) in the script, as they did.
 Every measurement is printed as one JSON object per line; then the
-``{"kernels": [...]}`` line, the nvidia-smi line, and last
+``{"kernels": [...]}`` line (with each kernel's launches on every path that
+counted them), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or stdd_tpu.
 """
 
@@ -159,7 +178,8 @@ from stdd_torch.runtime.classifier import ClipScorer, yuv420_to_rgb  # noqa: E40
 from stdd_torch.models.yunet import YuNet, detect_scaled, resize_linear_u8  # noqa: E402
 from stdd_torch.ops.nms import nms_fixed  # noqa: E402
 from stdd_torch.runtime.app import RealtimeApp, run_loop  # noqa: E402
-from stdd_torch.runtime.engine import AsyncDetector, StreamingEngine, _FrameEntry  # noqa: E402
+from stdd_torch.runtime.engine import (AsyncDetector, StreamingEngine, _FrameEntry,  # noqa: E402
+                                       get_crop_box)
 from stdd_torch.runtime.packing import pack_clip_batch, pack_track  # noqa: E402
 from stdd_torch.runtime.ring import DeviceRing, RingKernels  # noqa: E402
 from stdd_torch.runtime.server import MultiStreamServer  # noqa: E402
@@ -1267,7 +1287,7 @@ def serve_fused(dev, path: str, unfused16_model, phase: str, tols: dict, spread_
 
 # -- phase 12: dense windows of one track through the fused scorer --------------
 
-def phase_dense(fused16, unfused16, smi) -> int:
+def phase_dense(fused16, unfused16, smi):
     """Every stride-1 window of one 300-frame track at batch 8, as the
     offline demo scores a whole track (``stdd_tpu/eval/demo.py:121,188``)."""
     T, S, N, batch = 32, 256, 300, 8
@@ -1318,7 +1338,7 @@ def phase_dense(fused16, unfused16, smi) -> int:
                              f"K1 launches {k1_launches} (want {forwards})")
     if not delta <= DENSE_TOL:
         raise AssertionError(f"dense vs host-packed |Δp| {delta} > {DENSE_TOL}")
-    return k2_launches
+    return k2_launches, k1_launches
 
 
 # -- phase 13: I3D AltFreezing training, then its checkpoint served through K2 ----
@@ -2153,6 +2173,297 @@ def phase_landmarker_train(dev, smi: str):
         raise AssertionError(f"landmarker_train: K1/K2 launched {k1}/{k2} times")
 
 
+# -- phases 21-23: the offline evaluation harnesses --------------------------------
+
+# four 720p BenchScene videos (two under real/, two under fake/, which the
+# harness's path tokens label), one face each, 96 frames, written as .y4m
+# before any clock starts. The face's sprite is 128 px: its box (about 92 ×
+# 115 px) clears the harness's min_det_side of 80, and its big box (at most
+# 234 px) fits the 256-px crop buffer unscaled, so the demo's dense and
+# packed paths hand the scorer the same bytes. (A downscaled crop takes one
+# scale per clip on the packed path and one per track on the dense path: the
+# pixels then differ by design, as JAX's own test of the two allows 2e-3.)
+EVAL_HW, EVAL_FACE_PX, EVAL_FRAMES = (720, 1280), 128, 96
+EVAL_LABELS = ("real", "real", "fake", "fake")
+# the JAX harness CLI's defaults (stdd_tpu/eval/harness.py:344-367)
+HARNESS_ARGS = dict(clip_size=32, stride=5, detect_every=4, batch_clips=8, crop_scale=0.5,
+                    crop_buffer=256, threshold=0.4, min_det_side=80, det_conf=0.6)
+HARNESS_CLI_FRAMES = 48
+DEMO_BATCH = 8
+# probs of a scorer loaded from the reference-format file written from
+# another scorer's weights, against that scorer: the same float32 weights
+# in the same model (0.0 expected)
+REFERENCE_CKPT_TOL = 1e-6
+
+
+def write_eval_videos(tmp_dir: str, dev):
+    """[(path, label, scene)] of the four videos, rendered on ``dev``."""
+    from stdd_torch.eval.bench_scene import BenchScene
+    from stdd_torch.utils.video_io import write_y4m
+
+    videos = []
+    for k, label in enumerate(EVAL_LABELS):
+        scene = BenchScene(EVAL_HW, n_faces=1, seed=SEED + 20 + k, face_px=EVAL_FACE_PX,
+                           device=dev)
+        path = os.path.join(tmp_dir, "videos", label, f"scene{k}.y4m")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_y4m(path, (scene.frame(i) for i in range(EVAL_FRAMES)))
+        videos.append((path, int(label == "fake"), scene))
+    return videos
+
+
+def phase_reference_ckpt(dev, smi: str, scorer, tmp_dir: str, frames, cache) -> str:
+    """The phase scorer's weights written as a reference ``.pth``
+    (``{"classifier": state_dict}`` under the reference's keys), served by
+    ``ClipScorer.from_torch_checkpoint``: the same weights and, on 8 windows
+    of the first video, the same probs (``REFERENCE_CKPT_TOL``). Returns the
+    file's path, which the harness CLI then serves."""
+    from stdd_torch.eval.demo import build_clips
+    from stdd_torch.utils.torch_convert import i3d_torch_to_reference
+
+    T = HARNESS_ARGS["clip_size"]
+    path = os.path.join(tmp_dir, "i3d_reference.pth")
+    t0 = time.perf_counter()
+    torch.save({"classifier": i3d_torch_to_reference(scorer.model.state_dict()), "epoch": 0},
+               path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = ClipScorer.from_torch_checkpoint(path, cfg=scorer.cfg, upload_format="rgb",
+                                              device=dev)
+    load_s = time.perf_counter() - t0
+    src_sd, got_sd = scorer.model.state_dict(), loaded.model.state_dict()
+    same = sorted(src_sd) == sorted(got_sd) and all(torch.equal(src_sd[k], got_sd[k])
+                                                    for k in src_sd)
+    clips = build_clips(*cache, frames, T)
+    batch = pack_clip_batch(clips[::len(clips) // 8][:8], 8, T, HARNESS_ARGS["crop_buffer"])
+    want, got = scorer.score(*batch), loaded.score(*batch)
+    dp = float(np.abs(got - want).max())
+    emit({"phase": "reference_ckpt", "card": smi, "file_mb": os.path.getsize(path) / 2 ** 20,
+          "tensors": len(src_sd), "save_s": save_s, "load_s": load_s, "weights_equal": same,
+          "probs": got.tolist(), "vs_source_max_dp": dp, "tol": REFERENCE_CKPT_TOL})
+    del loaded
+    if not same:
+        raise AssertionError("reference_ckpt: the loaded weights differ from the source's")
+    if not (np.isfinite(got).all() and ((got > 0) & (got < 1)).all()):
+        raise AssertionError(f"reference_ckpt: probs not finite in (0, 1): {got}")
+    if not dp <= REFERENCE_CKPT_TOL:
+        raise AssertionError(f"reference_ckpt: |Δp| vs the source scorer {dp} > "
+                             f"{REFERENCE_CKPT_TOL}")
+    return path
+
+
+def phase_harness(dev, smi: str, scorer, videos, tmp_dir: str, onnx: str, ref_path: str):
+    """``harness.run_video`` → ``summarize`` → ``write_csvs`` over the four
+    videos at the JAX CLI's defaults, RGB upload, the engine warmed up as
+    the CLI warms it, the detector the scene's oracle (``"detections_real":
+    false``); then the CLI itself over a list file with ``--ckpt`` = the
+    reference-format file and YuNet on the random YuNet-shaped graph.
+    Returns the path's K1 and K2 launches."""
+    from stdd_torch.eval import harness
+
+    a = HARNESS_ARGS
+    pipe = PipelineConfig(clip_size=a["clip_size"], stride=a["stride"],
+                          detect_every=a["detect_every"], batch_clips=a["batch_clips"],
+                          threshold=a["threshold"], pool_method="mean",
+                          min_face_side=a["min_det_side"], crop_scale=a["crop_scale"])
+    oracle = {"scene": None, "calls": 0}
+
+    def detect_fn(frame_bgr):
+        # the engine detects on every detect_every-th frame, in order
+        i = oracle["calls"] * pipe.detect_every
+        oracle["calls"] += 1
+        return oracle["scene"].oracle(i)
+
+    eng = StreamingEngine(scorer, detect_fn, cfg=pipe, crop_buffer=a["crop_buffer"],
+                          start_conf=a["det_conf"])
+    rows, batches, clip_scores = [], 0, []
+    try:
+        eng.warmup()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fused_bottleneck.launches = warp_affine.launches = 0      # the harness path starts here
+        t0 = time.perf_counter()
+        for path, gt, scene in videos:
+            oracle.update(scene=scene, calls=0)
+            r = harness.run_video(eng, path, a["threshold"])
+            batches += eng._group._next_seq               # reset() zeroes it per video
+            clip_scores.append([p for s in eng.track_clip_scores.values() for p in s])
+            r.update(gt_label=gt, dataset=harness.dataset_of(path),
+                     subset=harness.subset_of(path),
+                     device_mem_peak_mb=harness.device_mem_peak_mb(dev), model_size=0,
+                     cold_start=False)
+            rows.append(r)
+        wall = time.perf_counter() - t0
+        k1, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+    finally:
+        eng.close()
+    # the host's share that no engine clock covers: decoding one video alone
+    t0 = time.perf_counter()
+    n_read = sum(1 for _ in harness.iter_video_frames(videos[0][0]))
+    decode_s = time.perf_counter() - t0
+    summary = harness.summarize(rows, 0)
+    out_dir = os.path.join(tmp_dir, "harness")
+    harness.write_csvs(rows, summary, out_dir, a["threshold"])
+    with open(os.path.join(out_dir, "per_video.csv")) as f:
+        per_video = list(csv.reader(f))
+    with open(os.path.join(out_dir, "summary.csv")) as f:
+        summary_csv = list(csv.reader(f))
+    windows = sum(len(s) for s in clip_scores)
+    res = {"phase": "harness", "card": smi, "detections_real": False,
+           "detector": "BenchScene.oracle rows", "frame_hw": list(EVAL_HW),
+           "face_px": EVAL_FACE_PX, "frames_per_video": EVAL_FRAMES, **a,
+           "upload_format": scorer.upload_format, "videos": len(rows),
+           "frames_processed": [r["frames_processed"] for r in rows],
+           "num_tracks": [r["num_tracks"] for r in rows],
+           "windows_per_video": [len(s) for s in clip_scores],
+           "video_scores": [r["video_score"] for r in rows],
+           "pred_labels": [r["pred_label"] for r in rows],
+           "fps_per_video": [r["fps"] for r in rows],
+           "latency_ms_clip_mean": [r["latency_ms_clip_mean"] for r in rows],
+           "device_mem_peak_mb": [r["device_mem_peak_mb"] for r in rows],
+           "seconds": wall, "windows_scored": windows, "windows_per_s": windows / wall,
+           "t_decode_alone_one_video": decode_s, "frames_decoded_alone": n_read,
+           "batches_dispatched": batches, "k1_launches": k1, "k2_launches": k2,
+           "summary": {k: summary[k] for k in ("accuracy", "auc_roc", "mean_fps",
+                                                "mean_latency_ms_clip")}}
+    emit(res)
+    flat = [p for s in clip_scores for p in s] + [r["video_score"] for r in rows]
+    if any(r["frames_processed"] != EVAL_FRAMES or r["num_tracks"] != 1 for r in rows):
+        raise AssertionError(f"harness: frames {res['frames_processed']}, tracks "
+                             f"{res['num_tracks']} (want {EVAL_FRAMES} and 1 a video)")
+    if not all(clip_scores) or not all(np.isfinite(p) and 0.0 < p < 1.0 for p in flat):
+        raise AssertionError(f"harness: scores not finite in (0, 1) or a video unscored: "
+                             f"{clip_scores}")
+    if per_video[0] != harness.PER_VIDEO_HEADER or summary_csv[0] != harness.SUMMARY_HEADER \
+            or len(per_video) != len(rows) + 1:
+        raise AssertionError(f"harness: CSV headers {per_video[0]} / {summary_csv[0]}")
+    if not k1 == batches > 0 or k2:
+        raise AssertionError(f"harness: K1 launches {k1} != scored batches {batches}, "
+                             f"K2 launches {k2}")
+
+    # the CLI, in its own process, as an analyst runs it
+    lst = os.path.join(tmp_dir, "videos.txt")
+    with open(lst, "w") as f:
+        f.write("\n".join(path for path, _, _ in videos) + "\n")
+    cli_out = os.path.join(tmp_dir, "harness_cli")
+    cmd = [sys.executable, "-m", "stdd_torch.eval.harness", "--video_list", lst, "--out_dir",
+           cli_out, "--yunet_model", onnx, "--ckpt", ref_path, "--max_frames",
+           str(HARNESS_CLI_FRAMES), "--clip_size", str(a["clip_size"])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    cli_rows = []
+    if proc.returncode == 0:
+        with open(os.path.join(cli_out, "per_video.csv")) as f:
+            cli_rows = list(csv.DictReader(f))
+    emit({"phase": "harness_cli", "card": smi, "detections_real": False,
+          "detector": "YuNet-shaped graph, random weights", "returncode": proc.returncode,
+          "wall_s": cli_s, "max_frames": HARNESS_CLI_FRAMES, "rows": len(cli_rows),
+          "fps": [float(r["fps"]) for r in cli_rows],
+          "num_tracks": [int(r["num_tracks"]) for r in cli_rows],
+          "video_scores": [float(r["video_score"]) for r in cli_rows],
+          "model_size": [int(r["model_size"]) for r in cli_rows],
+          # no track means no window scored; the CSV does not count windows
+          # of a started track, so then the number is left open
+          "windows_scored": (0 if not any(int(r["num_tracks"]) for r in cli_rows)
+                             else "not counted by per_video.csv"),
+          "stdout_tail": proc.stdout[-600:]})
+    if proc.returncode != 0 or len(cli_rows) != len(videos):
+        raise AssertionError(f"harness CLI: exit {proc.returncode}, {len(cli_rows)} rows; "
+                             f"stderr: {proc.stderr[-3000:]}")
+    ref_size = os.path.getsize(ref_path)
+    if any(int(r["frames_processed"]) != HARNESS_CLI_FRAMES
+           or int(r["model_size"]) != ref_size for r in cli_rows):
+        raise AssertionError(f"harness CLI: frames_processed / model_size "
+                             f"{[(r['frames_processed'], r['model_size']) for r in cli_rows]}, "
+                             f"want {HARNESS_CLI_FRAMES} and {ref_size} on every row")
+    return k1, k2
+
+
+def phase_demo(dev, smi: str, scorer, frames, cache):
+    """``demo.eval_video`` on the first video with the oracle's detections
+    in the cache layout (the 68-point tile): ``dense=True``, then the packed
+    path over the same stride-1 windows, batch 8. Returns each path's K1 and
+    K2 launches."""
+    from stdd_torch.eval import demo
+
+    T = HARNESS_ARGS["clip_size"]
+    want = EVAL_FRAMES - T + 1
+    forwards = -(-want // DEMO_BATCH)
+    runs = {}
+    for name, dense in (("dense", True), ("packed", False)):
+        torch.cuda.synchronize()
+        fused_bottleneck.launches = warp_affine.launches = 0     # the demo's path starts here
+        r = demo.eval_video(scorer, frames, detect_res=cache[0], lm68s=cache[1], clip_size=T,
+                            crop_buffer=HARNESS_ARGS["crop_buffer"], batch=DEMO_BATCH,
+                            dense=dense)
+        runs[name] = (r, warp_affine.launches, fused_bottleneck.launches)   # ... ends here
+    (rd, k1d, k2d), (rp, k1p, k2p) = runs["dense"], runs["packed"]
+    # the packed path's host share: packing its batches alone
+    clips = demo.build_clips(*cache, frames, T)
+    t0 = time.perf_counter()
+    for i in range(0, len(clips), DEMO_BATCH):
+        pack_clip_batch(clips[i:i + DEMO_BATCH], DEMO_BATCH, T, HARNESS_ARGS["crop_buffer"])
+    pack_s = time.perf_counter() - t0
+    dp = float(np.abs(np.subtract(rd["preds"], rp["preds"])).max())
+    boxes = [get_crop_box(frames[0].shape[:2], face[0], HARNESS_ARGS["crop_scale"])
+             for faces in cache[0] for face in faces]
+    big = int(max(max(b[2] - b[0], b[3] - b[1]) for b in boxes))
+    res = {"phase": "demo", "card": smi, "detections_real": False, "frames": rd["frames"],
+           "clip": T, "batch": DEMO_BATCH, "forwards": forwards, "max_big_box_px": big,
+           "pack_scale": min(1.0, HARNESS_ARGS["crop_buffer"] / big),
+           **{f"{k}_{n}": runs[n][0][k] for n in runs
+              for k in ("clips", "video_score", "t_detect", "t_aligninfer", "fps_model",
+                        "fps_end2end")},
+           "t_pack_alone_packed": pack_s, "k1_launches_dense": k1d, "k1_launches_packed": k1p,
+           "k2_launches": k2d + k2p, "dense_vs_packed_dp": dp, "tol": DENSE_TOL}
+    emit(res)
+    preds = np.asarray(rd["preds"] + rp["preds"])
+    if not rd["clips"] == rp["clips"] == want:
+        raise AssertionError(f"demo: {rd['clips']} dense / {rp['clips']} packed windows "
+                             f"(want {want})")
+    if not (np.isfinite(preds).all() and ((preds > 0) & (preds < 1)).all()):
+        raise AssertionError("demo: probs not finite in (0, 1)")
+    if not dp <= DENSE_TOL:
+        raise AssertionError(f"demo: dense vs packed |Δp| {dp} > {DENSE_TOL}")
+    if k1d != forwards or k1p != forwards or k2d or k2p:
+        raise AssertionError(f"demo: K1 launches {k1d} / {k1p} (want {forwards} each), "
+                             f"K2 {k2d + k2p}")
+    return {"demo_dense": k1d, "demo_packed": k1p}, {"demo_dense": k2d, "demo_packed": k2p}
+
+
+def phase_eval(dev, smi: str, main_scorer, tmp_dir: str):
+    """The three evaluation phases with an RGB-upload scorer over the main
+    scorer's weights (I3D-R50, 32×224², bf16); their wall time. Returns
+    {kernel: {phase: launches}}."""
+    from stdd_torch.eval.demo import cache_from_rows
+    from stdd_torch.eval.harness import iter_video_frames
+
+    t_start = time.perf_counter()
+    scorer = ClipScorer(main_scorer.model.state_dict(), cfg=main_scorer.cfg,
+                        upload_format="rgb", device=dev)
+    videos = write_eval_videos(tmp_dir, dev)
+    onnx = write_onnx(yunet_shaped_graph(SEED), os.path.join(tmp_dir, "yunet_shaped.onnx"))
+    path0, _, scene0 = videos[0]
+    frames0 = [f[:, :, ::-1] for f in iter_video_frames(path0)]          # RGB, as demo.main
+    cache0 = cache_from_rows(scene0.oracle(i) for i in range(len(frames0)))
+    setup_s = time.perf_counter() - t_start
+    walls = {}
+    t0 = time.perf_counter()
+    ref_path = phase_reference_ckpt(dev, smi, scorer, tmp_dir, frames0, cache0)
+    walls["reference_ckpt"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k1h, k2h = phase_harness(dev, smi, scorer, videos, tmp_dir, onnx, ref_path)
+    walls["harness"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k1d, k2d = phase_demo(dev, smi, scorer, frames0, cache0)
+    walls["demo"] = time.perf_counter() - t0
+    emit({"phase": "eval_wall", "setup_s": setup_s, **{f"{k}_s": v for k, v in walls.items()},
+          "seconds": time.perf_counter() - t_start})
+    return {"warp_affine": {"harness": k1h, **k1d}, "fused_bottleneck": {"harness": k2h, **k2d}}
+
+
 def timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -2204,13 +2515,23 @@ def main() -> None:
     k1_launches = engine_res["k1_launches"]
     with tempfile.TemporaryDirectory() as tmp_dir:
         det = phase_detector(dev, tmp_dir, smi)
-        phase_engine_detector(scorer, det, smi, scene, frames, engine_res)
-        phase_server(scorer, smi)
-        phase_app(scorer, det, smi, scene, frames)
+        det_res = phase_engine_detector(scorer, det, smi, scene, frames, engine_res)
+        server_res = phase_server(scorer, smi)
+        app_res = phase_app(scorer, det, smi, scene, frames)
         del frames, det
         fused16 = phase_fused_scorer(dev, scorer, tmp_dir)
-    k2_launches = phase_dense(fused16, scorer, smi)
+    k2_launches, dense_k1 = phase_dense(fused16, scorer, smi)
     del fused16
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        eval_launches = phase_eval(dev, smi, scorer, tmp_dir)
+    # each kernel's launches on every path that counted them
+    by_phase = {
+        "warp_affine": {"engine": k1_launches, "engine_detector": det_res["k1_launches"],
+                        **{f"server_{n}calls_{wait}": r["k1_launches"]
+                           for (n, wait), r in server_res.items()},
+                        "app": app_res["k1_launches"], "dense": dense_k1,
+                        **eval_launches["warp_affine"]},
+        "fused_bottleneck": {"dense": k2_launches, **eval_launches["fused_bottleneck"]}}
     with tempfile.TemporaryDirectory() as tmp_dir:
         ckpt = phase_train(dev, smi, tmp_dir)
         trained16 = ClipScorer.from_jax_checkpoint(ckpt, upload_format="yuv420", device=dev)
@@ -2235,11 +2556,13 @@ def main() -> None:
     emit({"kernels": [
         {"name": "warp_affine", "route": "cuda", "source": "stdd_torch/csrc/warp_affine.cu",
          "replaces": "stdd_tpu/ops/warp_pallas.py:94", "launches": k1_launches,
+         "launches_by_phase": by_phase["warp_affine"],
          "max_abs_err": k1_err, "ms": t1["ms"], "plain_ms": t1["plain_ms"],
          "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"], "library_ms": t1["library_ms"]},
         {"name": "fused_bottleneck", "route": "cuda",
          "source": "stdd_torch/csrc/fused_bottleneck.cu",
          "replaces": "stdd_tpu/ops/bottleneck_pallas.py:148", "launches": k2_launches,
+         "launches_by_phase": by_phase["fused_bottleneck"],
          "max_abs_err": k2_err, "ms": per_launch["ms"], "plain_ms": per_launch["plain_ms"],
          "bound_ms": max(per_launch["bytes_ms"], per_launch["ops_ms"]), "bound_by": k2_bound_by,
          "library_ms": None}]})

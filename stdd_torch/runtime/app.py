@@ -15,7 +15,7 @@ which the port does not use; they and the cv2 sources wait in ROADMAP.md,
 and their flags are refused by name rather than ignored.
 
 CLI, on the card: ``python -m stdd_torch.runtime.app --source screen:TITLE
---det_model face_detection_yunet_2023mar.onnx [--jax_ckpt CKPT]``.
+--det_model face_detection_yunet_2023mar.onnx [--ckpt REF.pth | --jax_ckpt CKPT]``.
 """
 
 from __future__ import annotations
@@ -129,8 +129,6 @@ _CV2_ITEM = "ROADMAP.md §1 item 2, the pieces of the detector and the app that 
 _NOT_PORTED = {
     "--show": f"the cv2 overlay window ({_CV2_ITEM})",
     "--out_video": f"the cv2 overlay and video writer ({_CV2_ITEM})",
-    "--ckpt": "utils/torch_convert.py, the reference-checkpoint loader "
-              "(ROADMAP.md §1 item 3, eval harnesses)",
     "--int8": "the int8 serving knob (ROADMAP.md §1 item 9)",
 }
 
@@ -144,7 +142,8 @@ def main(argv=None):
                     help="screen-capture pacing (win_capture.py target_hz)")
     ap.add_argument("--det_model", default=None,
                     help="YuNet ONNX file (default: models/yunet.py DEFAULT_MODEL)")
-    ap.add_argument("--ckpt", default=None, help="not ported: " + _NOT_PORTED["--ckpt"])
+    ap.add_argument("--ckpt", default=None,
+                    help="reference .pth checkpoint (converted on load)")
     ap.add_argument("--jax_ckpt", default=None,
                     help="msgpack checkpoint trained by stdd_tpu.train.run_i3d "
                          "(or written by stdd_torch.utils.checkpoint)")
@@ -196,23 +195,11 @@ def main(argv=None):
 
     from ..models.yunet import DEFAULT_MODEL, YuNet, detect_scaled
     from . import sources
-    from .classifier import ClipScorer
+    from .classifier import load_scorer
     from .engine import AsyncDetector
 
-    kw = dict(upload_format=args.upload_format, device=args.device)
-    if args.jax_ckpt:
-        from ..config import I3DConfig
-
-        # geometry: --model_crop wins; else the checkpoint's sidecar
-        # metadata (cfg=None); else the default 224
-        cfg = None
-        if args.model_crop:
-            cfg = I3DConfig(num_frames=args.clip_size, crop_size=args.model_crop)
-        elif not os.path.exists(args.jax_ckpt + ".json"):
-            cfg = I3DConfig(num_frames=args.clip_size)
-        scorer = ClipScorer.from_jax_checkpoint(args.jax_ckpt, cfg=cfg, **kw)
-    else:
-        scorer = ClipScorer.random_init(**kw)
+    scorer = load_scorer(args.ckpt, args.jax_ckpt, args.clip_size, args.model_crop,
+                         upload_format=args.upload_format, device=args.device)
     # the detector's float32 convolutions run without TF32 (cuDNN's default
     # would take it), the precision its card-vs-CPU parity holds them to;
     # the scorer computes in bf16 and does not read the flag

@@ -14,6 +14,7 @@ the sigmoid of the first logit.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from typing import Optional
 
@@ -50,6 +51,55 @@ def yuv420_to_rgb(planar: torch.Tensor) -> torch.Tensor:
     g = yl - 0.391 * u - 0.813 * v
     b = yl + 2.018 * u
     return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 255.0)
+
+
+def sidecar_config(path: str) -> Optional[I3DConfig]:
+    """The geometry the trainer wrote beside a checkpoint (``{path}.json``:
+    clip_size, crop_size, temporal_only), or None without a sidecar, as
+    ``stdd_tpu/runtime/classifier.py:264`` reads it, so a non-224
+    checkpoint is never served at 224. A sidecar that is not JSON, or lacks
+    ``clip_size`` or ``crop_size`` (the trainer always writes both), raises
+    a ``ValueError`` naming it instead of serving a guessed geometry."""
+    sidecar = path + ".json"
+    try:
+        with open(sidecar) as f:
+            meta = json.load(f)
+    except FileNotFoundError:
+        return None
+    except json.JSONDecodeError as e:
+        raise ValueError(f"checkpoint sidecar {sidecar} is not valid JSON: {e}") from e
+    missing = [k for k in ("clip_size", "crop_size") if not isinstance(meta, dict) or k not in meta]
+    if missing:
+        raise ValueError(f"checkpoint sidecar {sidecar} lacks {missing}: "
+                         "the geometry to serve the checkpoint at is unknown")
+    return I3DConfig(num_frames=int(meta["clip_size"]), crop_size=int(meta["crop_size"]),
+                     temporal_only=bool(meta.get("temporal_only", False)))
+
+
+def load_scorer(ckpt: Optional[str], jax_ckpt: Optional[str], clip_size: int,
+                model_crop: Optional[int] = None, **kw) -> "ClipScorer":
+    """The scorer of the serving and evaluation CLIs (``--ckpt``,
+    ``--jax_ckpt``, ``--clip_size``, ``--model_crop``): a reference ``.pth``,
+    a trainer checkpoint or, with neither, random weights. ``--clip_size``
+    sets the frames the model takes. A ``--jax_ckpt``'s crop size comes from
+    ``--model_crop``, else from its sidecar (with ``temporal_only``), else
+    224. The JAX CLIs let the sidecar's clip_size win over ``--clip_size``
+    while the engine windows at ``--clip_size`` (ADVICE.md r5 #2,
+    ``stdd_tpu/eval/harness.py:945``); the port does not."""
+    if ckpt and jax_ckpt:
+        raise SystemExit("--ckpt and --jax_ckpt are mutually exclusive")
+    cfg = I3DConfig(num_frames=clip_size)
+    if ckpt:
+        return ClipScorer.from_torch_checkpoint(ckpt, cfg=cfg, **kw)
+    if not jax_ckpt:
+        return ClipScorer.random_init(cfg=cfg, **kw)
+    if model_crop:
+        cfg = dataclasses.replace(cfg, crop_size=model_crop)
+    else:
+        meta = sidecar_config(jax_ckpt)
+        if meta is not None:
+            cfg = dataclasses.replace(meta, num_frames=clip_size)
+    return ClipScorer.from_jax_checkpoint(jax_ckpt, cfg=cfg, **kw)
 
 
 class ProbsHandle:
@@ -127,6 +177,20 @@ class ClipScorer:
         return cls(i3d_flax_to_torch(variables), cfg=cfg, **kw)
 
     @classmethod
+    def from_torch_checkpoint(cls, path: str, cfg: Optional[I3DConfig] = None, **kw):
+        """Serve a reference PyTorch ``.pth`` (``{"classifier": state_dict}``,
+        ``{"state_dict": …}`` or a bare state dict with keys like
+        ``resnet.s2.pathway0_res0.branch2.a.weight``), as
+        ``stdd_tpu/runtime/classifier.py:256`` does: the reference keys go
+        through :func:`~stdd_torch.utils.torch_convert.load_reference_checkpoint`
+        to a flax tree, then through the weight bridge. A checkpoint that does
+        not cover the model, or holds entries it lacks, raises. The file
+        carries no geometry: ``cfg`` (default ``I3DConfig()``) gives it."""
+        from ..utils.torch_convert import load_reference_checkpoint
+
+        return cls(i3d_flax_to_torch(load_reference_checkpoint(path)), cfg=cfg, **kw)
+
+    @classmethod
     def from_jax_checkpoint(cls, path: str, cfg: Optional[I3DConfig] = None, **kw):
         """Serve weights the JAX trainer wrote (``{name}_{epoch}.msgpack``
         from ``save_checkpoint``, of either package): ``params`` and
@@ -134,32 +198,9 @@ class ClipScorer:
         ``opt_state`` or any leaf the model lacks is ignored, and a
         checkpoint that does not cover the model (missing leaves or other
         shapes) raises. Without ``cfg`` the geometry comes from the
-        trainer's ``{path}.json`` sidecar (clip_size, crop_size,
-        temporal_only) when there is one, so a non-224 checkpoint is never
-        served at 224; with no sidecar the defaults hold, as in
-        ``stdd_tpu/runtime/classifier.py:264``. A sidecar that is not JSON,
-        or lacks ``clip_size`` or ``crop_size`` (the trainer always writes
-        both), raises a ``ValueError`` naming it instead of serving a
-        guessed geometry."""
+        trainer's ``{path}.json`` sidecar (:func:`sidecar_config`)."""
         if cfg is None:
-            cfg = I3DConfig()
-            sidecar = path + ".json"
-            try:
-                with open(sidecar) as f:
-                    meta = json.load(f)
-            except FileNotFoundError:
-                meta = None
-            except json.JSONDecodeError as e:
-                raise ValueError(f"checkpoint sidecar {sidecar} is not valid JSON: {e}") from e
-            if meta is not None:
-                missing = [k for k in ("clip_size", "crop_size")
-                           if not isinstance(meta, dict) or k not in meta]
-                if missing:
-                    raise ValueError(f"checkpoint sidecar {sidecar} lacks {missing}: "
-                                     "the geometry to serve the checkpoint at is unknown")
-                cfg = I3DConfig(num_frames=int(meta["clip_size"]),
-                                crop_size=int(meta["crop_size"]),
-                                temporal_only=bool(meta.get("temporal_only", False)))
+            cfg = sidecar_config(path) or I3DConfig()
         with torch.device("meta"):
             model = I3D(cfg)                       # refuses what the port lacks
         # the merge reads the target's shapes only: zero-stride views, no data

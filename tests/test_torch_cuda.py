@@ -1,7 +1,9 @@
 """The port on an NVIDIA card: K1 and K2 against their plain versions, the
 scorer (unfused and ``fused_s2``, packed and dense) on the card against the
-same scorer on the CPU, and the device-resident ring path (pushes and
-gathers on a side CUDA stream) against the host-packed path.
+same scorer on the CPU, the device-resident ring path (pushes and
+gathers on a side CUDA stream) against the host-packed path, the data
+production models, and the evaluation harness's ``run_video`` and a
+reference-format checkpoint on the card against the CPU.
 
 Every test here needs a card: each is marked ``cuda`` and skips with the
 reason "no CUDA device" where there is none. The file imports no JAX, so on
@@ -285,3 +287,65 @@ def test_au_resnet_on_card_matches_cpu(cuda):
     assert gpu.device.type == "cuda"
     faces = np.random.RandomState(0).randint(0, 256, (4, 240, 200, 3), np.uint8)
     assert np.abs(gpu.activations(faces) - cpu.activations(faces)).max() <= 1e-4
+
+
+# -- the offline evaluation harness and the reference-checkpoint loader ---------
+
+
+def _fixed_detector(frame_bgr):
+    lm = (STD_POINTS_256 * (50 / 256.0) + np.array([30, 25])).reshape(-1)
+    return np.asarray([[30, 25, 50.0, 55.0, *lm, 0.95]], np.float32)
+
+
+def test_harness_run_video_on_card_matches_cpu(cuda, tmp_path):
+    """``eval/harness.py::run_video`` over a ``.y4m`` on the card (device
+    rings, K1) against the same engine on the CPU: the verdict equal, the
+    video score within the scorer's float32 bound."""
+    from stdd_torch.eval.harness import run_video
+    from stdd_torch.utils.video_io import write_y4m
+
+    rng = np.random.RandomState(0)
+    base = rng.randint(0, 255, (120, 160, 3), np.uint8)
+    path = str(tmp_path / "real" / "a.y4m")
+    (tmp_path / "real").mkdir()
+    write_y4m(path, [np.roll(base, i, axis=1) for i in range(24)])
+    gpu = ClipScorer.random_init(CFG, seed=0, dtype=torch.float32, device=cuda)
+    cpu = ClipScorer(gpu.model.state_dict(), cfg=CFG, dtype=torch.float32, device="cpu")
+    pipe = PipelineConfig(clip_size=8, stride=4, detect_every=2, batch_clips=2, min_face_side=5)
+    rows = {}
+    before = warp_affine.launches
+    for name, scorer in (("gpu", gpu), ("cpu", cpu)):
+        eng = StreamingEngine(scorer, _fixed_detector, cfg=pipe, crop_buffer=128,
+                              q_lap_hard=0.0, q_weighting=False)
+        try:
+            rows[name] = run_video(eng, path, threshold=0.5)
+        finally:
+            eng.close()
+        if name == "gpu":
+            assert eng.device_resident and warp_affine.launches > before
+    g, c = rows["gpu"], rows["cpu"]
+    assert g["frames_processed"] == c["frames_processed"] == 24
+    assert g["num_tracks"] == c["num_tracks"] == 1
+    assert g["pred_label"] == c["pred_label"]
+    assert abs(g["video_score"] - c["video_score"]) <= 1e-4
+
+
+def test_from_torch_checkpoint_on_card(cuda, tmp_path):
+    """A reference-format ``.pth`` served on the card: the file's weights,
+    and probs within the float32 bound of the same file on the CPU."""
+    from stdd_torch.utils.torch_convert import i3d_torch_to_reference
+
+    src = ClipScorer.random_init(CFG, seed=3, dtype=torch.float32, device="cpu")
+    path = str(tmp_path / "ref.pth")
+    torch.save({"classifier": i3d_torch_to_reference(src.model.state_dict())}, path)
+    gpu = ClipScorer.from_torch_checkpoint(path, cfg=CFG, dtype=torch.float32, device=cuda)
+    cpu = ClipScorer.from_torch_checkpoint(path, cfg=CFG, dtype=torch.float32, device="cpu")
+    for k, v in src.model.state_dict().items():
+        assert torch.equal(gpu.model.state_dict()[k].cpu(), v), k
+    rng = np.random.RandomState(2)
+    crops = rng.randint(0, 256, (2, 8, 96, 96, 3), np.uint8)
+    boxes = np.tile(np.array([100, 80, 196, 176], np.float32), (2, 8, 1))
+    lm5 = np.tile((STD_POINTS_256 * 0.3 + 10).astype(np.float32), (2, 8, 1, 1))
+    valid = np.array([True, True])
+    got, want = gpu.score(crops, boxes, lm5, valid), cpu.score(crops, boxes, lm5, valid)
+    assert np.all((got > 0) & (got < 1)) and np.abs(got - want).max() <= 1e-4
