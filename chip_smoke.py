@@ -136,9 +136,29 @@ exits non-zero without its result line):
               the oracle's detections in the cache layout: dense, then the
               packed path over the same 65 windows at batch 8: the same
               windows, ``dense_vs_packed_dp`` within ``DENSE_TOL``, one K1
-              launch a forward; the wall time of phases 21-23.
+              launch a forward; the wall time of phases 21-23;
+24. capstone — ``stdd_torch.eval.synth_e2e.main --dual`` at full width
+              (720p, clip 32, crop 224, the I3D-R50 trained and served in
+              bf16, the dual encoder's shipped width) and reduced depth
+              (``CAPSTONE_ARGS``): render → preprocess (oracle detections)
+              → run_i3d → the harness → run_dual; JAX's capstone contract
+              (eval videos, checkpoint epoch, AUCs in [0, 1], the five
+              phases, landmarked clips, ``detections_real`` false), no
+              ``dual_error``, K1 launches = the harness's warm-up + its
+              scored batches, K2 none; each phase's wall and disk bytes;
+25. fusion  — on the capstone's outputs: ``dump_video_features`` over its
+              eval videos with its served checkpoint (K1 a scored batch),
+              ``load_feature_clips``, one float32 AdamW step of
+              ``DualEncoderRGB`` at full width, batch 256, card vs CPU
+              (``FUSION_TOLS``; no gradient reaches ``rgb_proj`` or the
+              features) with its device time and kernels; ``align_scores``
+              of the harness's CSV (keys made unique) with the dual model's
+              per-video scores and ``train_moe`` card vs CPU (``MOE_TOL``);
+              ``pretrain_lmk`` on 2,048 synthetic landmark sequences, whose
+              loss must fall and last accuracy pass 0.5, and its step time.
 
-The K2 phases (10) run before the scorer (4) in the script, as they did.
+The K2 phases (10) run before the scorer (4) in the script, as they did,
+and the evaluation phases (21-25) before training (13).
 Every measurement is printed as one JSON object per line; then the
 ``{"kernels": [...]}`` line (with each kernel's launches on every path that
 counted them), the nvidia-smi line, and last
@@ -2464,6 +2484,344 @@ def phase_eval(dev, smi: str, main_scorer, tmp_dir: str):
     return {"warp_affine": {"harness": k1h, **k1d}, "fused_bottleneck": {"harness": k2h, **k2d}}
 
 
+# -- the synthetic capstone and the dual family's fusion ----------------------------
+
+# the capstone at full width (720p, clip 32, crop 224, the I3D-R50 trained and
+# served in bf16, the dual encoder at its shipped width) and reduced depth:
+# 2 train pairs (of 8), 1 eval pair (of 6), 64 frames (of 140), 1 I3D epoch
+# (of 5), 2 dual epochs (of 12)
+CAPSTONE_ARGS = ["--dual", "--fresh", "--train_pairs", "2", "--eval_pairs", "1",
+                 "--frames", "64", "--epochs", "1"]
+CAPSTONE_DUAL_EPOCHS = 2
+# the fusion phase: the feature dump's engine (every stride-1 window, so a
+# 64-frame video gives 33 clips, 4 windows of T), DualEncoderRGB at full
+# width and the dual trainer's batch, one step of the dual trainer's
+# optimizer (clip, AdamW, the one-cycle's first LR of 1.2e-5) card vs CPU
+# within DUAL_F32_TOLS' bounds for the loss, the gradients' norm and the
+# parameters (a first Adam step moves a parameter by at most that LR, of
+# either sign for a gradient that is zero but for rounding), the gated
+# fusion's 200 Adam steps card vs CPU, and landmark pretraining on
+# synthetic sequences
+FUSION_T, FUSION_BATCH, FUSION_TIMED_STEPS = 8, 256, 10
+FUSION_TOLS = {k: DUAL_F32_TOLS[k] for k in ("loss", "grad_norm", "params")}
+MOE_EPOCHS, MOE_TOL = 200, 1e-5
+PRETRAIN_N, PRETRAIN_T, PRETRAIN_EPOCHS, PRETRAIN_BATCH = 2048, 8, 3, 64
+
+
+def phase_capstone(dev, smi: str, tmp_dir: str):
+    """``stdd_torch.eval.synth_e2e.main`` with ``--dual`` on the card at full
+    width and reduced depth (``CAPSTONE_ARGS``): render → preprocess →
+    run_i3d → the harness with K1 → run_dual. The JSON contract of JAX's two
+    capstone tests, no ``dual_error``, and K1 launches equal to the harness's
+    warm-up plus its scored batches (> 0), K2 none. Returns (result, --out,
+    K1, K2)."""
+    from stdd_torch.eval import harness, synth_e2e
+
+    out = os.path.join(tmp_dir, "synth_e2e")
+    count = {"batches": 0, "warmup_k1": 0}
+    run_video, build_engine, full = harness.run_video, harness.build_engine, synth_e2e.FULL
+
+    def counting_run_video(engine, *a, **k):
+        r = run_video(engine, *a, **k)
+        count["batches"] += engine._group._next_seq            # reset() zeroes it per video
+        return r
+
+    def counting_build_engine(args, detect_fn=None):
+        built = build_engine(args, detect_fn)
+        count["warmup_k1"] = warp_affine.launches               # the engine's warm-up
+        return built
+
+    harness.run_video, harness.build_engine = counting_run_video, counting_build_engine
+    synth_e2e.FULL = dict(full, dual_epochs=CAPSTONE_DUAL_EPOCHS)
+    try:
+        torch.cuda.synchronize()
+        fused_bottleneck.launches = warp_affine.launches = 0   # the capstone's path starts here
+        t0 = time.perf_counter()
+        res = synth_e2e.main(CAPSTONE_ARGS + ["--out", out, "--device", str(dev)])
+        seconds = time.perf_counter() - t0
+        k1, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+    finally:
+        harness.run_video, harness.build_engine, synth_e2e.FULL = run_video, build_engine, full
+    emit({"phase": "capstone", "card": smi, "argv": CAPSTONE_ARGS,
+          "dual_epochs": CAPSTONE_DUAL_EPOCHS, "seconds": seconds, "result": res,
+          "k1_launches": k1, "k1_warmup_launches": count["warmup_k1"],
+          "scored_batches": count["batches"], "k2_launches": k2})
+    aucs = [res.get(k) for k in ("video_auc", "dual_video_auc", "dual_clip_auc")]
+    if "dual_error" in res:
+        raise AssertionError(f"capstone: phase 5 failed: {res['dual_error']}")
+    if res["eval_videos"] != 2 or res["train_ckpt_epoch"] < 1 or res["detections_real"]:
+        raise AssertionError(f"capstone: eval_videos {res['eval_videos']}, train_ckpt_epoch "
+                             f"{res['train_ckpt_epoch']}, detections_real {res['detections_real']}")
+    if not all(a is not None and 0.0 <= a <= 1.0 for a in aucs):
+        raise AssertionError(f"capstone: AUCs {aucs} not in [0, 1]")
+    if set(res["phase_wall_s"]) != {"render", "preprocess", "train", "eval", "dual"}:
+        raise AssertionError(f"capstone: phases {sorted(res['phase_wall_s'])}")
+    if not res.get("lm_clips", 0) > 0:
+        raise AssertionError("capstone: the dense landmarker logged no clip")
+    if not (k1 - count["warmup_k1"] == count["batches"] > 0) or k2:
+        raise AssertionError(f"capstone: K1 launches {k1} != warm-up {count['warmup_k1']} + "
+                             f"scored batches {count['batches']}, K2 launches {k2}")
+    return res, out, k1, k2
+
+
+def device_step_ms(step, reps: int) -> float:
+    """Median device time of one ``step()`` over ``reps`` calls (CUDA events
+    around each, after one warm-up call)."""
+    step()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in range(reps)]
+    for a, b in evs:
+        a.record()
+        step()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in evs]))
+
+
+def kernels_per_call(fn, calls: int = 3) -> float:
+    """Device kernels ``fn()`` launches a call (the profiler's CUDA events)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA) / calls
+
+
+def dump_eval_features(dev, out: str, res: dict, feat_dir: str):
+    """``dump_video_features`` over the capstone's eval videos with the
+    checkpoint it served (RGB upload, bf16), each video's oracle rows as the
+    detector, every stride-1 window. Returns (npz paths, scored batches)."""
+    import re
+
+    from stdd_torch.eval import synth_e2e
+    from stdd_torch.eval.features import dump_video_features
+    from stdd_torch.runtime.classifier import load_scorer
+    from stdd_torch.utils.video_io import read_y4m
+
+    cfg = synth_e2e.FULL
+    scorer = load_scorer(None, os.path.join(out, res["served_ckpt"]), cfg["clip_size"],
+                         cfg["crop"], upload_format="rgb", device=dev)
+    batches = [0]
+    score = scorer.score_with_features
+
+    def counting(*a, **k):
+        batches[0] += 1
+        return score(*a, **k)
+
+    scorer.score_with_features = counting
+    pipe = PipelineConfig(clip_size=cfg["clip_size"], stride=1, detect_every=4,
+                          batch_clips=8, min_face_side=10)
+    paths = []
+    for video in sorted(glob.glob(os.path.join(out, "videos_eval", "*", "*.y4m"))):
+        label = os.path.basename(os.path.dirname(video))
+        seed = int(re.search(r"vid_(\d+)", video).group(1))
+        frames = list(read_y4m(video))
+        scene = synth_e2e.scene_of(seed, label, cfg["frame_hw"], cfg["face_px"], device=dev)
+        oracle = synth_e2e.OracleDetector(
+            {video: np.stack([scene.oracle(i) for i in range(len(frames))])},
+            every=pipe.detect_every, conf=synth_e2e.DET_CONF).switch(video)
+        path = os.path.join(feat_dir, f"{label}_{os.path.basename(video)[:-4]}.npz")
+        dump_video_features(scorer, frames, oracle, cfg=pipe, crop_buffer=cfg["crop_buffer"],
+                            q_weighting=False, q_lap_hard=0.0, out_path=path)
+        paths.append(path)
+    del scorer
+    return paths, batches[0]
+
+
+def rgb_fusion_step(where, A, L, R, lengths, y):
+    """One float32 step of ``DualEncoderRGB`` at full width on ``where``
+    from the seed's weights, dropout 0, with the dual trainer's optimizer
+    (``dual_setup``'s: clip 1.0, AdamW, a one-cycle over 3 epochs of 8
+    steps). Returns (model, loss, the gradients' norm, the features' tensor,
+    step)."""
+    from stdd_torch.models.dual_rgb import DualEncoderRGB
+    from stdd_torch.train import engine_dual as eng
+    from stdd_torch.train.losses import bce_with_logits
+    from stdd_torch.train.optim import global_norm
+
+    model = DualEncoderRGB(dropout=0.0, seed=SEED).to(where)
+    params = {k: p for k, p in model.named_parameters() if p.requires_grad}
+    args = eng.DualTrainArgs(epochs=DUAL_EPOCHS, batch=FUSION_BATCH)
+    tx = eng.make_dual_optimizer(args, eng.make_schedule(args, DUAL_EPOCH_SAMPLES // DUAL_BATCH))
+    state = {"opt": tx.init(params)}
+    A, L, R, lengths, y = (torch.from_numpy(x).to(where) for x in (A, L, R, lengths, y))
+    R.requires_grad_(True)
+
+    def step():
+        for p in params.values():
+            p.grad = None
+        loss = bce_with_logits(model(A, L, R, lengths=lengths, train=True)["bin_logits"], y)
+        loss.backward()
+        with torch.no_grad():
+            grads = {k: p.grad for k, p in params.items()}
+            updates, state["opt"] = tx.update(grads, state["opt"], params)
+            for k, p in params.items():
+                p.add_(updates[k])
+        return loss.detach(), global_norm(grads)
+
+    loss, gnorm = step()
+    return model, loss, gnorm, R, step
+
+
+def phase_fusion(dev, smi: str, out: str, res: dict, tmp_dir: str):
+    """The dual family's fusion on the capstone's outputs. The feature path:
+    ``dump_video_features`` over its eval videos with its served checkpoint
+    (K1 on every scored batch), ``load_feature_clips(T=8)``, then one
+    float32 AdamW step of ``DualEncoderRGB`` at full width on a batch of
+    256 on the card and on the CPU (``FUSION_TOLS``; no gradient reaches
+    ``rgb_proj`` or the features), and the step's device time and kernels.
+    The fusion fit: ``align_scores`` of the harness's ``per_video.csv`` (its
+    keys made unique: ``real_vid_100``, ``fake_vid_100``) with the dual
+    model's per-video scores, then ``train_moe`` on the card and the CPU
+    (``MOE_TOL``). Pretraining: ``pretrain_lmk`` on synthetic landmark
+    sequences; the loss must fall and the last epoch's accuracy pass 0.5.
+    Returns (K1, K2)."""
+    from stdd_torch.data.dataset import DualFeaturesClipDataset
+    from stdd_torch.eval.best import aggregate_videos
+    from stdd_torch.eval.features import load_feature_clips
+    from stdd_torch.models.dual_encoder import DualEncoderAU_LMK, LMKDisc
+    from stdd_torch.train.engine_dual import collect_logits
+    from stdd_torch.train.engine_fusion import align_scores, train_moe
+    from stdd_torch.train.metrics import sigmoid
+    from stdd_torch.train.optim import adamw
+    from stdd_torch.train.pretrain import WEIGHT_DECAY, make_pretrain_step, pretrain_lmk
+    from stdd_torch.train.step import TrainState
+    from stdd_torch.utils.msgpack import msgpack_restore
+    from stdd_torch.utils.weights import dual_flax_to_torch
+
+    t_start = time.perf_counter()
+    feat_dir = os.path.join(tmp_dir, "rgb_features")
+    os.makedirs(feat_dir)
+    torch.cuda.synchronize()
+    fused_bottleneck.launches = warp_affine.launches = 0          # the fusion path starts here
+    paths, batches = dump_eval_features(dev, out, res, feat_dir)
+    clips = load_feature_clips(paths, FUSION_T)
+    dump_s = time.perf_counter() - t_start
+
+    test_dirs = sorted(glob.glob(os.path.join(out, "clips_eval", "**", "track_*", "clip_*"),
+                                 recursive=True))
+    ds = DualFeaturesClipDataset(clip_dirs=test_dirs, T=FUSION_T)
+    data = ds.load_all()
+    idx, ridx = (np.arange(FUSION_BATCH) % n for n in (len(data["y"]), len(clips["rgb"])))
+    batch = (data["A"][idx], data["L"][idx], clips["rgb"][ridx], data["lengths"][idx],
+             data["y"][idx])
+    runs = {}
+    for where in ("cpu", dev):
+        model, loss, gnorm, R, step = rgb_fusion_step(where, *batch)
+        runs[str(where)] = (model, float(loss), float(gnorm), R)
+    (mc, lc, gc, _), (mg, lg, gg, Rg) = runs["cpu"], runs[str(dev)]
+    pc, pg = mc.state_dict(), mg.state_dict()
+    rgb_err = {"loss": abs(lg - lc) / max(1.0, abs(lc)), "grad_norm": abs(gg - gc) / gc,
+               "params": max(float((pg[k].cpu() - pc[k]).abs().max())
+                             / max(1.0, float(pc[k].abs().max())) for k in pc)}
+    frozen = (mg.rgb_proj.weight.grad is None and Rg.grad is None
+              and torch.equal(pg["rgb_proj.weight"].cpu(), pc["rgb_proj.weight"]))
+    rgb_ms = device_step_ms(step, FUSION_TIMED_STEPS)
+    rgb_kernels = kernels_per_call(step)
+    del runs, mc, mg, step
+
+    # the dual model's per-video scores of the eval videos, as its report scores them
+    dual_dir = os.path.join(out, "dual")
+    dual = DualEncoderAU_LMK(au_dim=ds.au_dim, lmk_dim=ds.lmk_dim)
+    with open(os.path.join(dual_dir, "best.msgpack"), "rb") as f:
+        dual.load_state_dict(dual_flax_to_torch(msgpack_restore(f.read()), dual))
+    with open(os.path.join(dual_dir, "temperature.txt")) as f:
+        temperature = float(f.read())
+    logits, y = collect_logits(dual.to(dev), data)
+    meta = [(ds.tech_names[i], ds.vid_keys[i], int(data["trk"][i])) for i in range(len(y))]
+    videos = aggregate_videos(meta, y, sigmoid(logits / temperature), 0.5)
+    dual_scores = {k.split("::", 1)[1].replace("/", "_"): v["video_score"]
+                   for k, v in videos.items()}
+    # the harness's CSV with unique keys: a real video and its fake share a name
+    csv_path = os.path.join(tmp_dir, "per_video_keyed.csv")
+    with open(os.path.join(out, "results", "per_video.csv")) as f, \
+            open(csv_path, "w", newline="") as g:
+        rows = list(csv.DictReader(f))
+        w = csv.DictWriter(g, fieldnames=list(rows[0]))
+        w.writeheader()
+        for r in rows:
+            label = os.path.basename(os.path.dirname(r["video_path"]))
+            w.writerow(dict(r, video_path=f"{label}_{os.path.basename(r['video_path'])}"))
+    z_rgb, z_dual, yv, keys = align_scores(csv_path, dual_scores)
+    t0 = time.perf_counter()
+    moe = {str(where): train_moe(z_rgb, z_dual, yv, epochs=MOE_EPOCHS, log=lambda s: None,
+                                 device=where) for where in (dev, "cpu")}
+    moe_s = time.perf_counter() - t0
+    moe_err = {k: float(np.abs(moe[str(dev)][k] - moe["cpu"][k]).max())
+               for k in ("fused_probs", "gates")}
+
+    # landmark pretraining on smooth synthetic trajectories with ragged lengths
+    rng = np.random.RandomState(SEED + 40)
+    t = np.linspace(0, 1, PRETRAIN_T)[None, :, None]
+    seqs = np.sin(2 * np.pi * (t * rng.uniform(0.5, 2.0, (PRETRAIN_N, 1, 1))
+                               + rng.uniform(0, 1, (PRETRAIN_N, 1, 132)))).astype(np.float32)
+    lengths = rng.randint(4, PRETRAIN_T + 1, PRETRAIN_N).astype(np.int64)
+    seqs[np.arange(PRETRAIN_T)[None, :] >= lengths[:, None]] = 0.0
+    disc = LMKDisc(seed=SEED)
+    t0 = time.perf_counter()
+    pre = pretrain_lmk(disc, seqs, lengths, epochs=PRETRAIN_EPOCHS, batch=PRETRAIN_BATCH,
+                       log=lambda s: None, device=dev)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    tx = adamw(3e-4, WEIGHT_DECAY)
+    named = dict(disc.named_parameters())
+    pstate = {"s": TrainState(named, {}, tx.init(named), 0)}
+    pstep = make_pretrain_step(disc, tx)
+    Lb = torch.from_numpy(seqs[:PRETRAIN_BATCH]).to(dev)
+    lb = torch.from_numpy(lengths[:PRETRAIN_BATCH]).to(dev)
+
+    def pretrain_step():
+        pstate["s"], m = pstep(pstate["s"], Lb, lb, SEED)
+        return m["loss"]
+
+    pre_ms = device_step_ms(pretrain_step, FUSION_TIMED_STEPS)
+    k1, k2 = warp_affine.launches, fused_bottleneck.launches      # ... ends here
+    hist = pre["history"]
+    emit({"phase": "fusion", "card": smi, "feature_videos": len(paths),
+          "feature_clips_scored": int(sum(len(np.load(p)["feats"]) for p in paths)),
+          "rgb_windows": int(len(clips["rgb"])), "dump_s": dump_s, "k1_launches": k1,
+          "scored_batches": batches, "k2_launches": k2,
+          "rgb_model": "DualEncoderRGB au 36 lmk 132 vis 2048 d 256 depth 4 heads 4",
+          "rgb_batch": FUSION_BATCH, "rgb_card_vs_cpu": rgb_err, "rgb_tols": FUSION_TOLS,
+          "rgb_frozen_branch": frozen, "rgb_step_ms": rgb_ms, "rgb_kernels_per_step": rgb_kernels,
+          "moe_keys": keys, "moe_labels": yv.tolist(), "z_rgb": z_rgb.tolist(),
+          "z_dual": z_dual.tolist(), "dual_temperature": temperature,
+          "moe_card": {k: v for k, v in moe[str(dev)].items() if k != "params"
+                       and not isinstance(v, np.ndarray)},
+          "moe_fused_probs": moe[str(dev)]["fused_probs"].tolist(),
+          "moe_card_vs_cpu": moe_err, "moe_tol": MOE_TOL, "moe_s_both": moe_s,
+          "pretrain_sequences": PRETRAIN_N, "pretrain_history": hist, "pretrain_s": pre_s,
+          "pretrain_steps": PRETRAIN_EPOCHS * (PRETRAIN_N // PRETRAIN_BATCH),
+          "pretrain_step_ms": pre_ms, "seconds": time.perf_counter() - t_start})
+    if not (k1 == batches > 0) or k2:
+        raise AssertionError(f"fusion: K1 launches {k1} != scored batches {batches}, K2 {k2}")
+    if not len(clips["rgb"]) or clips["rgb"].shape[1:] != (FUSION_T, 2048):
+        raise AssertionError(f"fusion: feature windows {clips['rgb'].shape}")
+    for key, tol in FUSION_TOLS.items():
+        if not rgb_err[key] <= tol:
+            raise AssertionError(f"fusion: DualEncoderRGB card vs CPU {key} {rgb_err[key]} > {tol}")
+    if not frozen:
+        raise AssertionError("fusion: a gradient reached rgb_proj or the features")
+    if len(keys) != 2 or len(set(keys)) != len(keys):
+        raise AssertionError(f"fusion: align_scores keys {keys}")
+    if not all(v <= MOE_TOL for v in moe_err.values()):
+        raise AssertionError(f"fusion: train_moe card vs CPU {moe_err} > {MOE_TOL}")
+    if not (hist[-1]["loss"] < hist[0]["loss"] and hist[-1]["acc"] > 0.5):
+        raise AssertionError(f"fusion: pretraining did not learn: {hist}")
+    return k1, k2
+
+
+def phase_capstone_fusion(dev, smi: str):
+    """The capstone, then the fusion phase on its outputs, in one scratch
+    directory. Returns {kernel: {phase: launches}}."""
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        res, out, k1c, k2c = phase_capstone(dev, smi, tmp_dir)
+        k1f, k2f = phase_fusion(dev, smi, out, res, tmp_dir)
+    return {"warp_affine": {"capstone": k1c, "fusion": k1f},
+            "fused_bottleneck": {"capstone": k2c, "fusion": k2f}}
+
+
 def timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -2524,14 +2882,18 @@ def main() -> None:
     del fused16
     with tempfile.TemporaryDirectory() as tmp_dir:
         eval_launches = phase_eval(dev, smi, scorer, tmp_dir)
+    t0 = time.perf_counter()
+    capstone_launches = phase_capstone_fusion(dev, smi)
+    emit({"phase": "capstone_fusion_wall", "seconds": time.perf_counter() - t0})
     # each kernel's launches on every path that counted them
     by_phase = {
         "warp_affine": {"engine": k1_launches, "engine_detector": det_res["k1_launches"],
                         **{f"server_{n}calls_{wait}": r["k1_launches"]
                            for (n, wait), r in server_res.items()},
                         "app": app_res["k1_launches"], "dense": dense_k1,
-                        **eval_launches["warp_affine"]},
-        "fused_bottleneck": {"dense": k2_launches, **eval_launches["fused_bottleneck"]}}
+                        **eval_launches["warp_affine"], **capstone_launches["warp_affine"]},
+        "fused_bottleneck": {"dense": k2_launches, **eval_launches["fused_bottleneck"],
+                             **capstone_launches["fused_bottleneck"]}}
     with tempfile.TemporaryDirectory() as tmp_dir:
         ckpt = phase_train(dev, smi, tmp_dir)
         trained16 = ClipScorer.from_jax_checkpoint(ckpt, upload_format="yuv420", device=dev)

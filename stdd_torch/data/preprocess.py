@@ -397,10 +397,13 @@ def process_tree(
     out_dir: str,
     max_frames: Optional[int] = None,
     exts: Tuple[str, ...] = VIDEO_EXTS,
+    detector_for: Optional[Callable[[str], Callable]] = None,
 ) -> List[Dict]:
     """Walk a video tree, skipping processed videos; write a perf CSV. A
     video whose extension is in ``exts`` but is not ``.y4m`` raises (the
-    port decodes only YUV4MPEG2)."""
+    port decodes only YUV4MPEG2). ``detector_for(path)``, when given, makes
+    each video's ``detect_fn`` (a detector that knows its video, such as a
+    rendered scene's oracle)."""
     writer = ClipWriter(out_dir)
     logs: List[Dict] = []
     try:
@@ -412,6 +415,8 @@ def process_tree(
                 rel = os.path.splitext(os.path.relpath(vp, video_root))[0]
                 if already_processed(out_dir, rel):
                     continue
+                if detector_for is not None:
+                    pipeline.detect_fn = detector_for(vp)
                 perf = pipeline.process_video(vp, writer, rel, max_frames)
                 perf["video"] = rel
                 logs.append(perf)
@@ -425,20 +430,11 @@ def process_tree(
     return logs
 
 
-def main(argv=None):
-    """Dataset-production CLI: ``.y4m`` videos → per-track clips with
-    images, landmarks and AUs, on the card (``--device cuda``, the default;
-    it stops when there is none) or the CPU (``--device cpu``).
-
-    ``--landmarker dense`` (default) wires the packaged dense landmarker;
-    pass a ``.pkl`` path for another checkpoint or ``none`` to skip
-    landmarks. ``--au_ckpt random`` runs random AU weights, a path loads a
-    LibreFace checkpoint; omit it to skip AUs. ``--features`` converts the
-    written tree to lmk/au feature files and norm stats in the same run."""
+def build_parser():
+    """The dataset-production CLI's flags (the JAX CLI's, plus ``--device``)."""
     import argparse
 
-    from ..config import DetectorConfig
-    from ..models.yunet import DEFAULT_MODEL, YuNet, detect_scaled
+    from ..models.yunet import DEFAULT_MODEL
 
     ap = argparse.ArgumentParser(description="videos (.y4m) → face-clip dataset")
     ap.add_argument("--video_root", required=True)
@@ -470,22 +466,14 @@ def main(argv=None):
     ap.add_argument("--crop_scale", type=float, default=0.5,
                     help="big-box expansion for --aligned (get_crop_box scale)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    return ap
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("preprocess: --device cuda, but torch sees no CUDA device; "
-                         "pass --device cpu to run on the CPU")
-    model_path = args.yunet_model or DEFAULT_MODEL
-    if not os.path.isfile(model_path):
-        raise SystemExit(f"preprocess: YuNet's ONNX file {model_path} does not exist; "
-                         "pass --yunet_model PATH")
-    detector = YuNet(model_path, cfg=DetectorConfig(conf_threshold=args.det_conf),
-                     device=device)
 
-    def detect_fn(frame_bgr):
-        return detect_scaled(detector, frame_bgr, args.det_size)
-
+def run(args, device: torch.device, detector_for: Callable[[str], Callable]) -> List[Dict]:
+    """The CLI's work for parsed ``args`` on ``device``, each video detected
+    by ``detector_for(path)``: the AU model and landmarker the flags name,
+    the pipeline, ``process_tree`` and, with ``--features``, the feature
+    files and norm stats."""
     au = None
     if args.au_ckpt:
         from ..models.au_resnet import AUExtractor
@@ -504,7 +492,7 @@ def main(argv=None):
         lm = DenseLandmarker.from_checkpoint(args.landmarker, device=device)
 
     pipe = PreprocessPipeline(
-        detect_fn, au_extractor=au, landmarker=lm,
+        None, au_extractor=au, landmarker=lm,
         clip_length=args.clip_length, clip_step=args.clip_step,
         crop_size=(args.crop_size, args.crop_size),
         aligned=args.aligned, crop_scale=args.crop_scale,
@@ -512,7 +500,8 @@ def main(argv=None):
                           match_thresh=args.match_thresh,
                           track_buffer=30, split_low_scores=False),
     )
-    logs = process_tree(pipe, args.video_root, args.out_dir, max_frames=args.max_frames)
+    logs = process_tree(pipe, args.video_root, args.out_dir, max_frames=args.max_frames,
+                        detector_for=detector_for)
     print(f"processed {len(logs)} videos, "
           f"{sum(l.get('clips', 0) for l in logs)} clips → {args.out_dir}")
 
@@ -523,6 +512,37 @@ def main(argv=None):
         out = compute_norm_stats(args.out_dir, os.path.join(args.out_dir, "norm_stats.npz"))
         print(f"features: {stats}; norm stats → {out}")
     return logs
+
+
+def main(argv=None):
+    """Dataset-production CLI: ``.y4m`` videos → per-track clips with
+    images, landmarks and AUs, on the card (``--device cuda``, the default;
+    it stops when there is none) or the CPU (``--device cpu``).
+
+    ``--landmarker dense`` (default) wires the packaged dense landmarker;
+    pass a ``.pkl`` path for another checkpoint or ``none`` to skip
+    landmarks. ``--au_ckpt random`` runs random AU weights, a path loads a
+    LibreFace checkpoint; omit it to skip AUs. ``--features`` converts the
+    written tree to lmk/au feature files and norm stats in the same run."""
+    from ..config import DetectorConfig
+    from ..models.yunet import DEFAULT_MODEL, YuNet, detect_scaled
+
+    args = build_parser().parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("preprocess: --device cuda, but torch sees no CUDA device; "
+                         "pass --device cpu to run on the CPU")
+    model_path = args.yunet_model or DEFAULT_MODEL
+    if not os.path.isfile(model_path):
+        raise SystemExit(f"preprocess: YuNet's ONNX file {model_path} does not exist; "
+                         "pass --yunet_model PATH")
+    detector = YuNet(model_path, cfg=DetectorConfig(conf_threshold=args.det_conf),
+                     device=device)
+
+    def detect_fn(frame_bgr):
+        return detect_scaled(detector, frame_bgr, args.det_size)
+
+    return run(args, device, lambda path: detect_fn)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
 """Video-grouped, identity-linked, seeded train/val/test splits.
 
-Own copy of ``group_by_video`` (:25), ``link_identity_groups`` (:46),
-``make_split`` (:78) and ``load_split`` (:143) of ``stdd_tpu/data/splits.py`` (reference
-``dualrun/data/makeFF_splits.py:64``, ``makeSplit.py:123``): no video, and
-no manipulated identity, spans two phases, and one seed gives the same
-lists in both packages.
+Own copy of ``stdd_tpu/data/splits.py``: ``group_by_video`` (:25),
+``link_identity_groups`` (:46), ``make_split`` (:78), ``combine_splits``
+(:124), ``flatten_split`` (:134), ``save_split`` (:138), ``load_split``
+(:143) and ``check_no_leakage`` (:148) (reference
+``dualrun/data/makeFF_splits.py:64``, ``makeSplit.py:123``,
+``combine_splits.py:43``): no video, and no manipulated identity, spans two
+phases, one seed gives the same lists in both packages, and a saved split
+is the same JSON bytes.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import json
 import random
 import re
 from collections import defaultdict
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from .dataset import ids_from_dir, infer_tech_from_path, label_from_dir
 
@@ -105,7 +108,39 @@ def make_split(
     return out
 
 
+def combine_splits(splits: Iterable[Dict[str, List[str]]]) -> Dict[str, List[str]]:
+    """The union of several splits, phase by phase, sorted and deduplicated."""
+    out: Dict[str, List[str]] = {p: [] for p in PHASES}
+    for s in splits:
+        for p in PHASES:
+            out[p].extend(s.get(p, []))
+    for p in PHASES:
+        out[p] = sorted(set(out[p]))
+    return out
+
+
+def flatten_split(split: Dict[str, List[str]]) -> List[Tuple[str, str]]:
+    """[(phase, clip dir)] in phase order."""
+    return [(p, d) for p in PHASES for d in split.get(p, [])]
+
+
+def save_split(split: Dict[str, List[str]], path: str) -> None:
+    """The split as JSON, indented by one space (``load_split`` reads it)."""
+    with open(path, "w") as f:
+        json.dump(split, f, indent=1)
+
+
 def load_split(path: str) -> Dict[str, List[str]]:
     """A split JSON as ``make_split`` returns it ({phase: [clip dirs]})."""
     with open(path) as f:
         return json.load(f)
+
+
+def check_no_leakage(split: Dict[str, List[str]], identities: bool = True) -> bool:
+    """No video key, and (by default) no manipulated identity, appears in two
+    phases."""
+    dir_phase = {d: p for p in PHASES for d in split.get(p, [])}
+    groups = group_by_video(list(dir_phase))
+    if identities:
+        groups = link_identity_groups(groups)
+    return all(len({dir_phase[d] for d in dirs}) <= 1 for dirs in groups.values())

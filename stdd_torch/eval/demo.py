@@ -269,6 +269,9 @@ def main(argv=None):
     ap.add_argument("--max_frame", type=int, default=768)
     ap.add_argument("--clip_size", type=int, default=32)
     ap.add_argument("--threshold", type=float, default=0.04)
+    ap.add_argument("--cache_dir", default=None,
+                    help="detection cache directory (accepted and not read, as in "
+                         "the JAX demo)")
     ap.add_argument("--dense", default=None, action="store_true",
                     help="device-resident track buffers (default: on for the card)")
     ap.add_argument("--upload_format", default="rgb", choices=["rgb", "yuv420"],

@@ -5,7 +5,8 @@ with a forward hook capturing penultimate features (``AFModel`` at
 feature.py:92) and saves per-video ``npz`` files with features, logits and
 scores (``process_video`` :157) that feed ``DualEncoderRGB(from_features=
 True)``. Here the same flow rides the streaming engine with a
-feature-capturing scorer facade.
+feature-capturing scorer facade; :func:`load_feature_clips` (JAX :86) cuts
+the dumped files into that model's [N, T, 2048] input.
 """
 
 from __future__ import annotations
@@ -107,3 +108,24 @@ def dump_video_features(scorer, frames_bgr: Sequence[np.ndarray], detect_fn: Cal
         os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
         np.savez(out_path, **out)
     return out
+
+
+def load_feature_clips(paths: Sequence[str], T: int) -> Dict[str, np.ndarray]:
+    """Stack dumped per-video npz files into non-overlapping windows of
+    ``T`` clips per track, ``rgb [N, T, D]`` float32 with their track
+    ``trk`` and file index ``vid`` (the ``DualEncoderRGB`` input,
+    dual_rgb.py:47); no window gives ``rgb [0, T, 2048]``."""
+    windows, tids, vids = [], [], []
+    for vi, p in enumerate(paths):
+        z = np.load(p)
+        for tid in np.unique(z["tids"]):
+            f = z["feats"][z["tids"] == tid]
+            for s in range(0, len(f) - T + 1, T):
+                windows.append(f[s: s + T])
+                tids.append(tid)
+                vids.append(vi)
+    if not windows:
+        return {"rgb": np.zeros((0, T, 2048), np.float32),
+                "trk": np.zeros(0, np.int64), "vid": np.zeros(0, np.int64)}
+    return {"rgb": np.stack(windows).astype(np.float32),
+            "trk": np.asarray(tids), "vid": np.asarray(vids)}

@@ -307,11 +307,11 @@ def yunet_detector(model_path: Optional[str], device, conf: float, top_k: int, w
     return YuNet(path, DetectorConfig(conf_threshold=conf, top_k=top_k), device=device)
 
 
-def build_engine(args):
+def build_engine(args, detect_fn=None):
     """(engine, warmed): the scorer of ``--ckpt`` / ``--jax_ckpt`` (random
     weights with neither), YuNet over ``--yunet_model`` through
-    ``detect_scaled``, and the streaming engine at the CLI's settings, on
-    ``--device``; warmed up on the card."""
+    ``detect_scaled`` (or the caller's ``detect_fn``), and the streaming
+    engine at the CLI's settings, on ``--device``; warmed up on the card."""
     from ..config import PipelineConfig
     from ..models.yunet import detect_scaled
     from ..runtime.classifier import load_scorer
@@ -330,10 +330,12 @@ def build_engine(args):
     )
     scorer = load_scorer(args.ckpt, args.jax_ckpt, args.clip_size, args.model_crop,
                          upload_format=args.upload_format, device=device)
-    detector = yunet_detector(args.yunet_model, device, args.det_conf, args.det_topk, "harness")
+    if detect_fn is None:
+        detector = yunet_detector(args.yunet_model, device, args.det_conf, args.det_topk,
+                                  "harness")
 
-    def detect_fn(frame_bgr):
-        return detect_scaled(detector, frame_bgr, args.det_size)
+        def detect_fn(frame_bgr):
+            return detect_scaled(detector, frame_bgr, args.det_size)
 
     qkw = {}
     if not args.quality:
@@ -356,7 +358,36 @@ def build_engine(args):
     return engine, warmed
 
 
-def main(argv=None):
+def score_videos(engine, videos, args, warmed: bool, model_size: int,
+                 before_video=None) -> List[Dict]:
+    """``run_video`` over ``videos`` ((path, label, dataset, subset) each)
+    at ``args``' threshold and frame cap, one row a video with its labels,
+    peak device memory and model size; ``before_video(path)`` is called
+    before each video."""
+    rows = []
+    for vpath, gt, dset, subset in videos:
+        if before_video is not None:
+            before_video(vpath)
+        res = run_video(engine, vpath, args.threshold, args.max_frames)
+        res.update(
+            gt_label=gt, dataset=dset, subset=subset,
+            device_mem_peak_mb=device_mem_peak_mb(engine.scorer.device),
+            model_size=model_size,
+            # without warm-up the first video's timings hold the
+            # first-call costs; flag the row so summaries exclude it
+            cold_start=(not warmed) and len(rows) == 0,
+        )
+        rows.append(res)
+        print(
+            f"[{len(rows)}/{len(videos)}] {os.path.basename(vpath)} gt={gt} "
+            f"pred={res['pred_label']} score={res['video_score']:.4f} "
+            f"fps={res['fps']:.1f}"
+        )
+    return rows
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The harness CLI's flags (the JAX CLI's, plus ``--device``)."""
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--video_root", default=None)
@@ -397,6 +428,11 @@ def main(argv=None):
     ap.add_argument("--track_thresh", type=float, default=None,
                     help="override ByteTrack high-score threshold")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return ap
+
+
+def main(argv=None):
+    ap = build_parser()
     args = ap.parse_args(argv)
 
     if args.int8:
@@ -415,24 +451,8 @@ def main(argv=None):
     engine, warmed = build_engine(args)
     model_size = os.path.getsize(args.ckpt) if args.ckpt else 0
 
-    rows = []
     try:
-        for vpath, gt, dset, subset in videos:
-            res = run_video(engine, vpath, args.threshold, args.max_frames)
-            res.update(
-                gt_label=gt, dataset=dset, subset=subset,
-                device_mem_peak_mb=device_mem_peak_mb(engine.scorer.device),
-                model_size=model_size,
-                # without warm-up the first video's timings hold the
-                # first-call costs; flag the row so summaries exclude it
-                cold_start=(not warmed) and len(rows) == 0,
-            )
-            rows.append(res)
-            print(
-                f"[{len(rows)}/{len(videos)}] {os.path.basename(vpath)} gt={gt} "
-                f"pred={res['pred_label']} score={res['video_score']:.4f} "
-                f"fps={res['fps']:.1f}"
-            )
+        rows = score_videos(engine, videos, args, warmed, model_size)
     finally:
         engine.close()   # release the dispatch lanes and the rings
     summary = summarize(rows, model_size)

@@ -101,14 +101,16 @@ def _lecun_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
 
 
 class Dense(nn.Linear):
-    """flax ``nn.Dense`` (weight ``[out, in]``, the kernel transposed)."""
+    """flax ``nn.Dense`` (weight ``[out, in]``, the kernel transposed;
+    ``bias=False`` for ``use_bias=False``)."""
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         if generator is None:                     # nn.Linear's constructor
             return super().reset_parameters()
         with torch.no_grad():
             _lecun_(self.weight, self.in_features, generator)
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
 
 class LayerNorm(nn.LayerNorm):

@@ -18,7 +18,8 @@ trace or Adam's moments, and the counts) the same way.
 
 The dual encoder's bridge (:func:`dual_flax_to_torch`,
 :func:`dual_torch_to_flax`, for ``DualEncoderAU_LMK`` and ``LMKDisc``,
-``models/dual_encoder.py``) maps the params tree alone (the model has no
+``models/dual_encoder.py``, and ``DualEncoderRGB``, ``models/dual_rgb.py``,
+whose bias-free ``rgb_proj`` is one more ``Dense``) maps the params tree alone (the model has no
 batch statistics): ``Dense`` kernels ``[in, out]`` → ``weight [out, in]``;
 the attention's ``query``/``key``/``value`` kernels ``[D, H, D/H]`` and
 biases ``[H, D/H]`` → ``[D, D]`` / ``[D]``, its ``out`` kernel
@@ -28,6 +29,10 @@ a ``[D, D]`` weight; LayerNorm ``scale`` → ``weight``; the pooling query
 ``v`` as it is. :func:`dual_opt_state_to_flax` and
 :func:`dual_opt_state_from_flax` carry the trainer's AdamW state (optax's
 ``mu``, ``nu`` and ``count``).
+
+:func:`moe_flax_to_torch` and :func:`moe_torch_to_flax` carry the
+``GatedMoE`` fusion head (``models/dual_rgb.py``): the scalar temperatures
+``t_rgb``, ``t_dual`` as they are, the gate's ``Dense`` kernels transposed.
 
 :func:`conv2d_flax_to_torch` and :func:`conv2d_torch_to_flax` carry the 2D
 conv nets of data production (the landmarker's ``LandmarkNet``, whose
@@ -294,6 +299,50 @@ def dual_opt_state_to_flax(opt_state, heads: int) -> Dict[str, dict]:
 def dual_opt_state_from_flax(tree: Mapping, like):
     """optax's state dict of the dual trainer → the port's optimizer state."""
     return opt_state_from_flax(tree, like, dual_flax_to_torch)
+
+
+_MOE_SCALARS = ("t_rgb", "t_dual")
+_MOE_DENSE = ("gate_fc1", "gate_fc2")
+
+
+def moe_flax_to_torch(params: Mapping, model: Optional[torch.nn.Module] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """A ``GatedMoE`` params tree → the port's ``state_dict``; a leaf it
+    does not know raises, and with ``model`` every key and shape is checked
+    against ``model.state_dict()``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _leaves(params):
+        a = np.asarray(arr)
+        a = a.astype(np.float64 if a.dtype == np.float64 else np.float32)
+        if len(path) == 1 and path[0] in _MOE_SCALARS:
+            key = path[0]
+        elif len(path) == 2 and path[0] in _MOE_DENSE and path[1] in ("kernel", "bias"):
+            key = f"{path[0]}.{'weight' if path[1] == 'kernel' else 'bias'}"
+            a = a.T if path[1] == "kernel" else a
+        else:
+            raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
+    if model is not None:
+        _check_covers(out, model, "flax params")
+    return out
+
+
+def moe_torch_to_flax(state_dict: Mapping) -> Dict[str, dict]:
+    """The inverse of :func:`moe_flax_to_torch` (numpy arrays, float32;
+    float64 kept)."""
+    out: Dict[str, dict] = {}
+    for key, t in state_dict.items():
+        a = t.detach().cpu()
+        a = (a if a.dtype == torch.float64 else a.float()).numpy()
+        if key in _MOE_SCALARS:
+            out[key] = a
+            continue
+        mod, leaf = key.split(".")
+        if mod not in _MOE_DENSE or leaf not in ("weight", "bias"):
+            raise ValueError(f"unexpected GatedMoE entry {key}")
+        out.setdefault(mod, {})["kernel" if leaf == "weight" else "bias"] = (
+            a.T if leaf == "weight" else a)
+    return out
 
 
 # -- 2D conv nets: the landmarker and the AU ResNet-18 -------------------------------

@@ -232,6 +232,21 @@ def test_main_checks_every_container_before_scoring(tmp_path, monkeypatch):
     assert loaded == [] and not os.path.exists(tmp_path / "out")
 
 
+def test_main_accepts_the_jax_cache_dir_and_ignores_it(tmp_path, monkeypatch):
+    """A JAX demo command line with ``--cache_dir`` (parsed and never read
+    by ``stdd_tpu/eval/demo.py``) parses: the run goes on to the container
+    check, and the cache directory is not made."""
+    import stdd_torch.runtime.classifier as classifier
+
+    (tmp_path / "real").mkdir()
+    (tmp_path / "real" / "a.mp4").write_bytes(b"")
+    monkeypatch.setattr(classifier, "load_scorer", lambda *a, **k: None)
+    with pytest.raises(ValueError, match="a.mp4"):
+        demo.main(["--video_root", str(tmp_path), "--cache_dir", str(tmp_path / "cache"),
+                   "--max_frame", "10", "--device", "cpu", "--out_dir", str(tmp_path / "out")])
+    assert not os.path.exists(tmp_path / "cache")
+
+
 def test_main_refuses_int8_and_a_missing_card(monkeypatch):
     with pytest.raises(SystemExit, match="ROADMAP.md §1 item 9"):
         demo.main(["--video_root", ".", "--int8", "--device", "cpu"])

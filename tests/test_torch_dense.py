@@ -206,33 +206,31 @@ class _ValueScorer:
     """A model-free ``score_with_features``: clip k's value v (its mean
     pixel and box) is its logit and fills its features; its prob is
     sigmoid(v), or 1.0 for every clip with ``saturate`` (a trained scorer's
-    float32 sigmoid is exactly 1 above a logit of about 17). With ``stall``
-    the first call waits until a second call has returned, so the second
-    dispatch lane finishes its batch first."""
+    float32 sigmoid is exactly 1 above a logit of about 17). With
+    ``stall_first`` (the first emitted clip's value) the call that carries
+    that clip waits until another call has returned, so the other dispatch
+    lane finishes its batch first, whichever lane took the first batch."""
 
     upload_format = "rgb"
 
-    def __init__(self, saturate: bool, stall: bool):
-        self.saturate, self.stall = saturate, stall
+    def __init__(self, saturate: bool, stall_first=None):
+        self.saturate, self.stall_first = saturate, stall_first
         self.calls = []                       # logits of each call, in return order
-        self._started = 0
         self._lock = threading.Lock()
-        self._second_done = threading.Event()
+        self._other_done = threading.Event()
 
     def score_with_features(self, crops, boxes, lm5, valid):
-        with self._lock:
-            k = self._started
-            self._started += 1
-        if self.stall and k == 0:
-            assert self._second_done.wait(10), "no second batch was dispatched"
         v = (crops.reshape(len(crops), -1).mean(1) / 255.0
              + boxes[:, :, :2].mean((1, 2)) / 1000.0).astype(np.float32)
+        stalled = self.stall_first is not None and v[0] == self.stall_first
+        if stalled:
+            assert self._other_done.wait(10), "no second batch was dispatched"
         probs = np.ones_like(v) if self.saturate else 1 / (1 + np.exp(-v))
         n = int(valid.sum())
         with self._lock:
             self.calls.append(v[:n])
-        if k == 1:
-            self._second_done.set()
+        if not stalled:
+            self._other_done.set()
         return probs, v[:, None], np.repeat(v[:, None], 2048, 1)
 
 
@@ -247,7 +245,8 @@ def test_dump_video_features_pairs_saturated_probs():
     frames = [scene.frame(i) for i in range(30)]
     runs = {}
     for saturate in (False, True):
-        stub = _ValueScorer(saturate=saturate, stall=saturate)
+        # the saturated run stalls the batch the plain run emitted first
+        stub = _ValueScorer(saturate, runs[False][1]["logits"][0, 0] if saturate else None)
         runs[saturate] = (stub, dump_video_features(
             stub, frames, scene.oracle(PIPE["detect_every"]), cfg=PipelineConfig(**PIPE),
             **ENGINE_KW))
