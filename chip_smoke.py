@@ -155,10 +155,42 @@ exits non-zero without its result line):
               of the harness's CSV (keys made unique) with the dual model's
               per-video scores and ``train_moe`` card vs CPU (``MOE_TOL``);
               ``pretrain_lmk`` on 2,048 synthetic landmark sequences, whose
-              loss must fall and last accuracy pass 0.5, and its step time.
+              loss must fall and last accuracy pass 0.5, and its step time;
+26. app_file — the app over a ``.y4m`` file: a 720p ``BenchScene`` with
+              one face, 120 frames (~166 MB, written before any clock
+              starts); ``RealtimeApp`` + ``run_loop`` over
+              ``sources.iter_video_file`` at ``app``'s operating point with
+              the scene's oracle rows: fps with the decode, K1 launches
+              equal to the dispatched batches and above 0; the same app over
+              the same decoded frames in memory gives the same probabilities
+              (``APP_FILE_TOL``); then ``python -m stdd_torch.runtime.app
+              --source FILE --max_frames 48`` in its own process on the
+              YuNet-shaped random graph exits 0 having seen 48 frames (no
+              track starts on random weights);
+27. regen   — ``DualVideoRegenDataset`` (T 8, stride 2, training draws,
+              ``ClipDegrader`` at its defaults) over four 720p videos
+              (``original/`` ×2, ``deepfakes/`` ×2, one face, 48 frames) with
+              the packaged landmarker at the scene's boxes and the AU
+              ResNet-18 (random weights) on the card: ``load_all``, the
+              seconds an item spends in decode, degrade, landmarker and AU,
+              each degradation's ms on a 720p frame; item 0 on the card
+              against the CPU models (``L`` within a bound derived from
+              ``LANDMARK_TOLS``, ``A`` within ``AU_TOL``); one float32 step of
+              the dual trainer on the arrays; K1/K2 unlaunched;
+28. vox     — ``build_index`` and ``VoxLmkDataset(T=32, is_train=True)
+              .batches(64)`` over a speaker tree of ``lmk_features.npy``
+              (regen's rows and synthetic sequences, 17 speakers), then
+              ``pretrain_lmk`` for one epoch on the card: step ms, loss;
+29. libreface — a rendered face frame written as PNG (``image_io``),
+              ``get_aligned_image`` with the scene's box standing in for
+              YuNet and the packaged landmarker on the card, ``image_align``
+              and the AU ResNet-18 on the crop, ``main`` end to end; the ms
+              of each step, the landmarks against the renderer's mesh
+              (``PRE_PX_TOL``), K1/K2 unlaunched.
 
 The K2 phases (10) run before the scorer (4) in the script, as they did,
-and the evaluation phases (21-25) before training (13).
+the evaluation phases (21-25) before training (13), and phases 26-29
+last.
 Every measurement is printed as one JSON object per line; then the
 ``{"kernels": [...]}`` line (with each kernel's launches on every path that
 counted them), the nvidia-smi line, and last
@@ -2822,6 +2854,480 @@ def phase_capstone_fusion(dev, smi: str):
             "fused_bottleneck": {"capstone": k2c, "fusion": k2f}}
 
 
+
+# -- phases 26-29: video-file input and the rest of data production -------------
+
+APP_FILE_HW, APP_FILE_FRAMES, APP_FILE_CLI_FRAMES = (720, 1280), 120, 48
+APP_FILE_TOL = 1e-6        # the same frames reach the same engine: 0.0 expected
+REGEN_HW, REGEN_FRAMES, REGEN_T, REGEN_STRIDE = (720, 1280), 48, 8, 2
+REGEN_VIDEOS = ("original", "original", "deepfakes", "deepfakes")
+VOX_SPEAKERS, VOX_CLIPS, VOX_T, VOX_BATCH = 16, 20, 32, 64
+LF_HW = (480, 640)
+
+
+def oracle_rows(scene, n: int) -> np.ndarray:
+    """[n, faces, 15] rows the scene drew in its first ``n`` frames."""
+    return np.stack([scene.oracle(i) for i in range(n)])
+
+
+def run_app_over(scorer, frames, rows) -> dict:
+    """``RealtimeApp`` + ``run_loop`` at ``phase_app``'s operating point
+    with the scene's oracle rows as the detector; K1's count zeroed just
+    before the run and read just after."""
+    from stdd_torch.eval.synth_e2e import OracleDetector
+
+    pipe = PipelineConfig(**ENGINE_PIPE)
+    oracle = OracleDetector({"v": rows}, pipe.detect_every, 0.0).switch("v")
+    eng = StreamingEngine(scorer, AsyncDetector(oracle), cfg=pipe, **ENGINE_KW)
+    app = RealtimeApp(eng, threshold=pipe.threshold)
+    try:
+        eng.warmup()
+        seq0 = eng._group._next_seq
+        warp_affine.launches = fused_bottleneck.launches = 0      # the run starts here
+        t0 = time.perf_counter()
+        ready, fake = run_loop(app, frames)
+        dt = time.perf_counter() - t0
+        launches, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+        batches = eng._group._next_seq - seq0
+    finally:
+        eng.close()
+    return {"seconds": dt, "fps": app.frames_seen / dt, "frames_seen": app.frames_seen,
+            "meeting_ready": bool(ready), "meeting_fake": bool(fake),
+            "scores": {int(t): [float(p) for p in v] for t, v in app.running_scores.items()},
+            "k1_launches": launches, "k2_launches": k2, "batches_dispatched": batches}
+
+
+def phase_app_file(scorer, smi: str, tmp_dir: str) -> int:
+    """The app over a ``.y4m`` file: a 720p ``BenchScene`` with one face,
+    120 frames, written before any clock starts; ``RealtimeApp`` +
+    ``run_loop`` over ``sources.iter_video_file`` with the scene's oracle
+    rows, then over the same decoded frames held in memory (the same
+    probabilities); then ``python -m stdd_torch.runtime.app --source FILE``
+    in its own process on the YuNet-shaped random graph. Returns K1's
+    launches on the file run."""
+    from stdd_torch.eval.bench_scene import BenchScene
+    from stdd_torch.runtime import sources
+    from stdd_torch.utils.video_io import read_y4m, write_y4m
+
+    scene = BenchScene(APP_FILE_HW, n_faces=1, seed=SEED + 60, device=str(scorer.device))
+    path = os.path.join(tmp_dir, "call.y4m")
+    write_y4m(path, (scene.frame(i) for i in range(APP_FILE_FRAMES)))       # set-up
+    rows = oracle_rows(scene, APP_FILE_FRAMES)
+    t0 = time.perf_counter()
+    decoded = list(read_y4m(path))
+    decode_s = time.perf_counter() - t0
+    fil = run_app_over(scorer, sources.iter_video_file(path), rows)
+    mem = run_app_over(scorer, iter(decoded), rows)
+    same_tracks = sorted(fil["scores"]) == sorted(mem["scores"]) and all(
+        len(fil["scores"][t]) == len(mem["scores"][t]) for t in fil["scores"])
+    dp = max((abs(a - b) for t in fil["scores"] if same_tracks
+              for a, b in zip(fil["scores"][t], mem["scores"][t])), default=float("inf"))
+
+    onnx = write_onnx(yunet_shaped_graph(SEED), os.path.join(tmp_dir, "yunet_shaped.onnx"))
+    cmd = [sys.executable, "-m", "stdd_torch.runtime.app", "--source", path, "--max_frames",
+           str(APP_FILE_CLI_FRAMES), "--det_model", onnx, "--no_warmup"]
+    t0 = time.perf_counter()
+    cli = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    cli_frames = [ln for ln in cli.stdout.splitlines() if ln.startswith("frames: ")]
+    r = {"phase": "app_file", "card": smi, "frame_hw": list(APP_FILE_HW),
+         "frames": APP_FILE_FRAMES, "file_mb": os.path.getsize(path) / 1e6,
+         "detector": "BenchScene.oracle rows", "detections_real": False,
+         "fps_file": fil["fps"], "fps_memory": mem["fps"], "decode_alone_s": decode_s,
+         "decode_ms_per_frame": 1000.0 * decode_s / len(decoded),
+         "k1_launches": fil["k1_launches"], "batches_dispatched": fil["batches_dispatched"],
+         "k1_launches_memory": mem["k1_launches"], "k2_launches": fil["k2_launches"],
+         "frames_seen": fil["frames_seen"],
+         "scored_tracks": fil["scores"], "file_vs_memory_dp": dp, "tol": APP_FILE_TOL,
+         "meeting_ready": fil["meeting_ready"], "meeting_fake": fil["meeting_fake"],
+         "cli_rc": cli.returncode, "cli_seconds": cli_s, "cli_frames_line": cli_frames,
+         "cli_verdict": [ln for ln in cli.stdout.splitlines() if ln.startswith("meeting")],
+         "cli_note": "YuNet-shaped random graph: no track starts, no window is scored"}
+    emit(r)
+    flat = [p for v in fil["scores"].values() for p in v]
+    if not (fil["k1_launches"] == fil["batches_dispatched"] > 0 and flat and not fil["k2_launches"]
+            and np.isfinite(flat).all() and fil["frames_seen"] == APP_FILE_FRAMES):
+        raise AssertionError(f"app_file: K1 {fil['k1_launches']}, batches "
+                             f"{fil['batches_dispatched']}, frames {fil['frames_seen']}, "
+                             f"scores {fil['scores']}")
+    if not (same_tracks and dp <= APP_FILE_TOL):
+        raise AssertionError(f"app_file: file vs memory |dp| {dp} > {APP_FILE_TOL} "
+                             f"({fil['scores']} vs {mem['scores']})")
+    if cli.returncode != 0 or cli_frames != [f"frames: {APP_FILE_CLI_FRAMES}"]:
+        raise AssertionError(f"app_file: the CLI exited {cli.returncode} with "
+                             f"{cli_frames}: {cli.stderr[-2000:]}")
+    return fil["k1_launches"], fil["k2_launches"]
+
+
+class OracleLandmarker:
+    """The regen dataset's landmarker on the card: the packaged
+    ``DenseLandmarker`` at the box the scene drew. ``read`` stands in for
+    ``regen.read_frames_strided``: it times the decode and notes the boxes
+    of the frames read; the k-th call then uses the k-th box (a dropped
+    frame shifts later calls by one frame, ≤ 3.6 px of a 288-px face)."""
+
+    def __init__(self, lm, scenes, read_fn):
+        self.lm, self.scenes, self.read_fn = lm, scenes, read_fn
+        self.boxes, self.k, self.points = [], 0, []
+        self.t = {"decode": 0.0, "landmarker": 0.0}
+
+    def read(self, path, T, stride=2, start=0):
+        t0 = time.perf_counter()
+        frames = self.read_fn(path, T, stride, start)
+        self.t["decode"] += time.perf_counter() - t0
+        scene = self.scenes[path]
+        self.boxes = []
+        for j in range(len(frames)):
+            x, y, w, h = scene.oracle(start + j * stride)[0][:4]
+            self.boxes.append((x, y, x + w, y + h))
+        self.k = 0
+        return frames
+
+    def __call__(self, frame_rgb):
+        t0 = time.perf_counter()
+        pts = self.lm(frame_rgb, self.boxes[min(self.k, len(self.boxes) - 1)])
+        self.t["landmarker"] += time.perf_counter() - t0
+        self.k += 1
+        self.points.append(pts)
+        return pts
+
+
+class TimedCall:
+    """A callable that adds its wall time to ``t[key]``."""
+
+    def __init__(self, fn, t: dict, key: str):
+        self.fn, self.t, self.key = fn, t, key
+
+    def __call__(self, *a):
+        t0 = time.perf_counter()
+        out = self.fn(*a)
+        self.t[self.key] += time.perf_counter() - t0
+        return out
+
+
+def degradation_ms(frame) -> dict:
+    """Host ms of each degradation on one 720p frame (median of 3)."""
+    import random
+
+    from stdd_torch.data import degrade as dg
+
+    ops = {"jpeg_recompress": lambda: dg.jpeg_recompress(frame, 57),
+           "down_up": lambda: dg.down_up(frame, 0.73),
+           "offcenter_crop": lambda: dg.offcenter_crop(frame, 0.08, random.Random(0)),
+           "motion_blur_7": lambda: dg.motion_blur(frame, 7),
+           "grayscale": lambda: dg.grayscale(frame),
+           "gauss_noise": lambda: dg.gauss_noise(frame, 6.0, np.random.RandomState(0)),
+           "gamma_contrast": lambda: dg.gamma_contrast(frame, random.Random(0)),
+           "letterbox": lambda: dg.letterbox(frame, random.Random(0))}
+    return {k: float(np.median([1000.0 * timed(f) for _ in range(3)])) for k, f in ops.items()}
+
+
+def phase_regen(dev, smi: str, tmp_dir: str):
+    """``DualVideoRegenDataset`` (T 8, stride 2, training draws,
+    ``ClipDegrader`` at its defaults) over four 720p ``BenchScene`` videos
+    (``original/`` ×2, ``deepfakes/`` ×2, one face, 48 frames) with the
+    packaged landmarker at the scene's boxes and the AU ResNet-18 (random
+    weights) on the card: ``load_all`` and the split of an item's seconds;
+    each degradation's ms on a 720p frame; item 0 on the card against the
+    same item on the CPU models; one float32 step of the dual trainer on
+    the arrays. Returns the arrays and K1's and K2's launches."""
+    from stdd_torch.data import regen
+    from stdd_torch.data.degrade import ClipDegrader
+    from stdd_torch.data.features import MOUTH_LEFT_IDX, MOUTH_RIGHT_IDX
+    from stdd_torch.eval.bench_scene import BenchScene
+    from stdd_torch.models.au_resnet import AUExtractor
+    from stdd_torch.models.facemesh import DenseLandmarker
+    from stdd_torch.utils.video_io import write_y4m
+    from stdd_torch.utils.weights import conv2d_torch_to_flax
+
+    scenes, paths = {}, []
+    for k, tech in enumerate(REGEN_VIDEOS):
+        scene = BenchScene(REGEN_HW, n_faces=1, seed=SEED + 70 + k, device=dev)
+        path = os.path.join(tmp_dir, "regen", tech, f"vid_{k}.y4m")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_y4m(path, (scene.frame(i) for i in range(REGEN_FRAMES)))     # set-up
+        scenes[path] = scene
+        paths.append(path)
+    au_cpu = AUExtractor.random_init(seed=SEED, device="cpu")
+    au = AUExtractor(conv2d_torch_to_flax(au_cpu.model.state_dict()), device=dev)
+    lm_card = DenseLandmarker.pretrained(device=dev)
+    lm_card(scenes[paths[0]].frame(0), (100, 100, 400, 400))     # warm-up: cuDNN's choice
+    au(np.zeros((REGEN_T, 256, 256, 3), np.uint8))
+    read = regen.read_frames_strided
+
+    def dataset(lm, extractor, t):
+        oracle = OracleLandmarker(lm, scenes, read)
+        oracle.t = t
+        deg = ClipDegrader(seed=SEED)
+        deg_timed = TimedCall(deg, t, "degrade")
+        ds = regen.DualVideoRegenDataset(paths, landmarker=oracle, T=REGEN_T,
+                                         frame_stride=REGEN_STRIDE, is_train=True,
+                                         au_extractor=TimedCall(extractor, t, "au"),
+                                         degrader=deg_timed, seed=SEED)
+        return ds, oracle
+
+    t = dict.fromkeys(("decode", "degrade", "landmarker", "au"), 0.0)
+    ds, oracle = dataset(lm_card, au, t)
+    regen.read_frames_strided = oracle.read
+    try:
+        torch.cuda.synchronize()
+        fused_bottleneck.launches = warp_affine.launches = 0      # the regen path starts here
+        t0 = time.perf_counter()
+        data = ds.load_all()
+        load_s = time.perf_counter() - t0
+        k1, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+        # item 0 again on the card and on the CPU models, from fresh datasets
+        # of the same seed (the same frames and draws)
+        one = {}
+        for where, lm, ex in (("card", lm_card, au),
+                              ("cpu", DenseLandmarker.pretrained(device="cpu"), au_cpu)):
+            d, o = dataset(lm, ex, dict.fromkeys(t, 0.0))
+            regen.read_frames_strided = o.read
+            one[where] = (d[0], np.stack(o.points))
+    finally:
+        regen.read_frames_strided = read
+    frame = scenes[paths[0]].frame(0, copy=True)
+    deg_ms = degradation_ms(frame)
+    (card, pc), (cpu, pp) = one["card"], one["cpu"]
+    # L is (p - nose) / s, s the mouth width: points off by δ per coordinate
+    # move a feature by at most 2δ/s + |L|·2√2δ/s ≤ 3(1 + |L|)δ/s, where δ is
+    # the landmarker's card-vs-CPU bound, 1e-4 of its crop (1.3 × the box)
+    crop = 1.3 * max(float(sc.oracle(0)[0][2:4].max()) for sc in scenes.values())
+    width = float(np.linalg.norm(pp[:, MOUTH_LEFT_IDX] - pp[:, MOUTH_RIGHT_IDX], axis=1).min())
+    l_tol = 3 * (1 + float(np.abs(cpu["L"]).max())) * LANDMARK_TOLS["card_vs_cpu_points"] \
+        * crop / width
+    n = len(ds)
+    steps = dual_regen_step(dev, data)
+    r = {"phase": "regen", "card": smi, "frame_hw": list(REGEN_HW), "videos": n,
+         "frames_per_video": REGEN_FRAMES, "T": REGEN_T, "frame_stride": REGEN_STRIDE,
+         "load_all_s": load_s, "s_per_item": load_s / n,
+         "split_s_per_item": {k: v / n for k, v in t.items()},
+         "lengths": data["lengths"].tolist(), "y": data["y"].tolist(), "tech": data["tech"],
+         "au_nonzero_frac": float((data["A"][..., :12] > 0).mean()),
+         "degradation_ms_720p": deg_ms, "au_weights": "random",
+         "landmarker": "packaged DenseLandmarker at BenchScene.oracle boxes",
+         "card_vs_cpu_points_px": float(np.abs(pc - pp).max()),
+         "card_vs_cpu_L": float(np.abs(card["L"] - cpu["L"]).max()), "L_tol": l_tol,
+         "card_vs_cpu_A": float(np.abs(card["A"] - cpu["A"]).max()), "A_tol": AU_TOL,
+         "same_lengths": bool(card["lengths"] == cpu["lengths"]),
+         "dual_step": steps, "k1_launches": k1, "k2_launches": k2}
+    emit(r)
+    if k1 or k2:
+        raise AssertionError(f"regen: K1/K2 launched {k1}/{k2} times on the regen path")
+    if data["L"].shape != (n, REGEN_T, 132) or data["A"].shape != (n, REGEN_T, 36) \
+            or not (data["lengths"] >= 1).all() or data["y"].tolist() != [0, 0, 1, 1]:
+        raise AssertionError(f"regen: arrays {data['L'].shape} {data['A'].shape} "
+                             f"lengths {data['lengths']} y {data['y']}")
+    if not (r["same_lengths"] and r["card_vs_cpu_L"] <= l_tol
+            and r["card_vs_cpu_A"] <= AU_TOL):
+        raise AssertionError(f"regen: card vs CPU L {r['card_vs_cpu_L']} (tol {l_tol}), "
+                             f"A {r['card_vs_cpu_A']} (tol {AU_TOL}), lengths "
+                             f"{card['lengths']} vs {cpu['lengths']}")
+    if not np.isfinite(steps["loss"]):
+        raise AssertionError(f"regen: dual step loss {steps['loss']}")
+    return data, k1, k2
+
+
+def dual_regen_step(dev, data: dict) -> dict:
+    """One float32 step of the dual trainer (the shipped width) on the
+    regen arrays, with its device time."""
+    model, state, step, mask = dual_setup(dev, n_domains=2)
+    batch = dual_batch(data, np.arange(len(data["y"])), dev)
+    t0 = time.perf_counter()
+    state, m = step(state, batch, mask, 0.1, SEED)
+    loss = float(m["loss"])
+    return {"loss": loss, "grad_norm": float(m["grad_norm"]), "batch": len(data["y"]),
+            "first_step_s": time.perf_counter() - t0}
+
+
+def write_vox_tree(root: str, regen_data: dict) -> int:
+    """Speaker folders of ``lmk_features.npy``: the regen items' valid L
+    rows (one speaker) and smooth synthetic sequences of 8-64 frames."""
+    rng = np.random.RandomState(SEED + 80)
+    n = 0
+    for i, (L, k) in enumerate(zip(regen_data["L"], regen_data["lengths"])):
+        d = os.path.join(root, "id_regen", f"clip{i}")
+        os.makedirs(d)
+        np.save(os.path.join(d, "lmk_features.npy"), L[:k])
+        n += 1
+    for s in range(VOX_SPEAKERS):
+        for c in range(VOX_CLIPS):
+            T = int(rng.randint(8, 65))
+            t = np.linspace(0, 1, T)[:, None]
+            x = np.sin(2 * np.pi * (t * rng.uniform(0.5, 2.0) + rng.uniform(0, 1, (1, 132))))
+            d = os.path.join(root, f"id{s:05d}", f"clip{c}")
+            os.makedirs(d)
+            np.save(os.path.join(d, "lmk_features.npy"), x.astype(np.float32))
+            n += 1
+    return n
+
+
+def phase_vox(dev, smi: str, tmp_dir: str, regen_data: dict):
+    """``build_index`` and ``VoxLmkDataset(T=32, is_train=True)
+    .batches(64)`` over a speaker tree the script writes, then
+    ``pretrain_lmk`` for one epoch on the card on the collated batches:
+    the step's time and the loss."""
+    from stdd_torch.data.vox import VoxLmkDataset, build_index
+    from stdd_torch.models.dual_encoder import LMKDisc
+    from stdd_torch.train.optim import adamw
+    from stdd_torch.train.pretrain import WEIGHT_DECAY, make_pretrain_step, pretrain_lmk
+    from stdd_torch.train.step import TrainState
+
+    root = os.path.join(tmp_dir, "vox")
+    files = write_vox_tree(root, regen_data)
+    t0 = time.perf_counter()
+    index = build_index(root)
+    index_s = time.perf_counter() - t0
+    ds = VoxLmkDataset(index["train"], T=VOX_T, is_train=True, seed=SEED)
+    t0 = time.perf_counter()
+    batches = list(ds.batches(VOX_BATCH))
+    batches_s = time.perf_counter() - t0
+    seqs = np.concatenate([b[0] for b in batches])
+    lengths = np.concatenate([b[1] for b in batches]).astype(np.int64)
+    disc = LMKDisc(seed=SEED)
+    torch.cuda.synchronize()
+    fused_bottleneck.launches = warp_affine.launches = 0      # the vox path starts here
+    t0 = time.perf_counter()
+    pre = pretrain_lmk(disc, seqs, lengths, epochs=1, batch=VOX_BATCH, log=lambda s: None,
+                       device=dev)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    k1, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+    tx = adamw(3e-4, WEIGHT_DECAY)
+    named = dict(disc.named_parameters())
+    pstate = {"s": TrainState(named, {}, tx.init(named), 0)}
+    pstep = make_pretrain_step(disc, tx)
+    Xb, lb = torch.from_numpy(seqs[:VOX_BATCH]).to(dev), torch.from_numpy(lengths[:VOX_BATCH]).to(dev)
+
+    def step():
+        pstate["s"], m = pstep(pstate["s"], Xb, lb, SEED)
+        return m["loss"]
+
+    step_ms = device_step_ms(step, 10)
+    speakers = {os.path.relpath(f, root).split(os.sep)[0] for f in index["train"]}
+    val_speakers = {os.path.relpath(f, root).split(os.sep)[0] for f in index["val"]}
+    r = {"phase": "vox", "card": smi, "files": files, "train_files": len(index["train"]),
+         "val_files": len(index["val"]), "train_speakers": len(speakers),
+         "val_speakers": len(val_speakers), "index_s": index_s, "batches": len(batches),
+         "batch": VOX_BATCH, "T": VOX_T, "batches_s": batches_s,
+         "lengths_min_max": [int(lengths.min()), int(lengths.max())],
+         "pretrain_s": pre_s, "pretrain_steps": len(batches),
+         "pretrain_history": pre["history"], "step_ms": step_ms, "k1_launches": k1,
+         "k2_launches": k2}
+    emit(r)
+    if k1 or k2:
+        raise AssertionError(f"vox: K1/K2 launched {k1}/{k2} times")
+    if speakers & val_speakers or len(speakers) + len(val_speakers) < 8 or not batches:
+        raise AssertionError(f"vox: speakers {sorted(speakers)} / {sorted(val_speakers)}, "
+                             f"{len(batches)} batches")
+    if seqs.shape[1:] != (VOX_T, 132) or not np.isfinite(pre["history"][-1]["loss"]):
+        raise AssertionError(f"vox: batches {seqs.shape}, history {pre['history']}")
+    return k1, k2
+
+
+class OracleYuNet:
+    """Within ``with``: the port's ``YuNet`` builds a stand-in and
+    ``detect_scaled`` returns ``rows``, the box the scene drew, as
+    ``preprocess``'s ``detector_for`` gives the oracle; YuNet's ONNX is not
+    in the repository."""
+
+    def __init__(self, rows):
+        from stdd_torch.models import yunet
+
+        self.mod, self.rows, self.calls = yunet, rows, 0
+        self.saved = (yunet.YuNet, yunet.detect_scaled)
+
+    def __enter__(self):
+        def detect(det, frame_bgr, det_size=None):
+            self.calls += 1
+            return self.rows.copy()
+
+        self.mod.YuNet = lambda *a, **kw: "oracle"
+        self.mod.detect_scaled = detect
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.YuNet, self.mod.detect_scaled = self.saved
+
+
+def phase_libreface(dev, smi: str, tmp_dir: str):
+    """``stdd_torch.data.libreface_align`` on the card: a rendered face
+    frame written as PNG by ``image_io``; ``get_aligned_image`` with the
+    scene's box as the detector (``OracleYuNet``) and the packaged
+    landmarker on the card; ``image_align`` and the AU ResNet-18 on the
+    crop; then ``main`` end to end (``--au_ckpt random``). The ms of each
+    step; the landmarks against the renderer's mesh."""
+    from stdd_torch.data import libreface_align as lf
+    from stdd_torch.eval.bench_scene import BenchScene
+    from stdd_torch.models.au_resnet import AUExtractor
+    from stdd_torch.models.facemesh import DenseLandmarker
+    from stdd_torch.train.train_landmarker import _key_indices
+    from stdd_torch.utils import image_io
+
+    scene = BenchScene(LF_HW, n_faces=1, seed=SEED + 90, device=dev)
+    frame = scene.frame(0, copy=True)
+    path = os.path.join(tmp_dir, "face.png")
+    ms = {"imwrite_png": 1000.0 * timed(lambda: image_io.imwrite(path, frame))}
+    back = {}
+    ms["imread_png"] = 1000.0 * timed(lambda: back.setdefault("img", image_io.imread(path)))
+    lm = DenseLandmarker.pretrained(device=dev)
+    lm(frame[:, :, ::-1], (100, 100, 400, 400))                 # warm-up
+    with OracleYuNet(scene.oracle(0)) as oracle:
+        res = {}
+        ms["get_aligned_image"] = 1000.0 * timed(
+            lambda: res.setdefault("r", lf.get_aligned_image(path, landmarker=lm, device=dev)))
+        aligned, lms = res["r"]
+        img_rgb = back["img"][:, :, ::-1]
+        lm72 = np.concatenate([lms["landmarks"][lf.RIGHT_EYE_IDX],
+                               lms["landmarks"][lf.LEFT_EYE_IDX], lms["landmarks"][lf.LIPS_IDX]])
+        x, y, w, h = scene.oracle(0)[0][:4]
+        ms["landmarker"] = 1000.0 * timed(lambda: lm(img_rgb, (x, y, x + w, y + h)))
+        ms["image_align"] = 1000.0 * timed(lambda: lf.image_align(img_rgb, lm72))
+        au = AUExtractor.random_init(seed=SEED, device=dev)
+        au(aligned[None])                                      # warm-up
+        acts = {}
+        ms["au"] = 1000.0 * timed(lambda: acts.setdefault("a", au.activations(aligned[None])))
+        out_dir = os.path.join(tmp_dir, "lf_out")
+        t0 = time.perf_counter()
+        rc = lf.main(["--image", path, "--out_dir", out_dir, "--au_ckpt", "random",
+                      "--device", str(dev)])
+        ms["main"] = 1000.0 * (time.perf_counter() - t0)
+        calls = oracle.calls
+    written = image_io.imread(os.path.join(out_dir, "face_aligned.png"))
+    key = _key_indices()
+    err = float(np.abs(lms["landmarks"][key] - scene.mesh(0)[0][key]).mean())
+    r = {"phase": "libreface", "card": smi, "frame_hw": list(LF_HW), "png_bytes":
+         os.path.getsize(path), "png_round_trip_equal": bool(np.array_equal(back["img"], frame)),
+         "aligned_shape": list(aligned.shape), "aligned_mean": float(aligned.mean()),
+         "landmarks_vs_mesh_px": err, "au_activations": acts["a"][0].tolist(),
+         "main_rc": rc, "main_png_equal": bool(np.array_equal(written[:, :, ::-1], aligned)),
+         "detector_calls": calls, "detector": "BenchScene.oracle rows", "ms": ms}
+    emit(r)
+    if not (r["png_round_trip_equal"] and aligned.shape == (256, 256, 3) and rc == 0
+            and r["main_png_equal"] and calls == 2 and np.isfinite(acts["a"]).all()):
+        raise AssertionError(f"libreface: {r}")
+    if not err <= PRE_PX_TOL:
+        raise AssertionError(f"libreface: landmarks {err} px from the mesh > {PRE_PX_TOL}")
+
+
+def phase_data_file(dev, smi: str, scorer) -> dict:
+    """Phases 26-29 in one scratch directory; → {kernel: {phase: launches}}."""
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        k1a, k2a = phase_app_file(scorer, smi, tmp_dir)
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        data, k1r, k2r = phase_regen(dev, smi, tmp_dir)
+        k1v, k2v = phase_vox(dev, smi, tmp_dir, data)
+    fused_bottleneck.launches = warp_affine.launches = 0          # the libreface path
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        phase_libreface(dev, smi, tmp_dir)
+    k1l, k2l = warp_affine.launches, fused_bottleneck.launches
+    if k1l or k2l:
+        raise AssertionError(f"libreface: K1/K2 launched {k1l}/{k2l} times")
+    return {"warp_affine": {"app_file": k1a, "regen": k1r, "vox": k1v, "libreface": k1l},
+            "fused_bottleneck": {"app_file": k2a, "regen": k2r, "vox": k2v, "libreface": k2l}}
+
+
 def timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -2907,6 +3413,11 @@ def main() -> None:
         phase_preprocess(dev, smi, tmp_dir, au)
     del au
     phase_landmarker_train(dev, smi)
+    t0 = time.perf_counter()
+    file_launches = phase_data_file(dev, smi, scorer)
+    emit({"phase": "data_file_wall", "seconds": time.perf_counter() - t0})
+    for k in by_phase:
+        by_phase[k].update(file_launches[k])
 
     # each kernel's numbers at the shape its path launched it with: K1 at
     # the engine's N; K2 at score_dense's batch of 8 clips, per launch over

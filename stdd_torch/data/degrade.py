@@ -1,4 +1,12 @@
-"""The two pixel degradations of the I3D training augmentations, without cv2.
+"""Label-agnostic clip degradations, without cv2.
+
+Port of ``stdd_tpu/data/degrade.py`` (the reference's
+``dualrun/data/dataset_regen.py:211`` chain). Host numpy: these run in the
+input pipeline, not on the card. Each operation is bit-equal to the JAX
+package's cv2 call on the same image (``tests/test_torch_degrade.py``),
+and :class:`ClipDegrader` makes JAX's random draws in JAX's order from the
+same ``random.Random`` and ``np.random.RandomState`` generators, so a
+degraded clip is JAX's bit for bit.
 
 - :func:`jpeg_recompress` is the round trip that
   ``stdd_tpu/data/degrade.py:18`` makes with ``cv2.imencode('.jpg')`` and
@@ -21,14 +29,32 @@
   that table; its Gaussian weights differ from the binomial ones by up to
   5 grey levels.)
 
-Images are ``[..., H, W, 3]`` uint8 in OpenCV's BGR order, as the JAX
-package hands them to cv2; leading axes (a clip's frames) are processed at
-once.
+- :func:`down_up`, :func:`offcenter_crop`, :func:`motion_blur`,
+  :func:`grayscale` are cv2's ``resize`` (INTER_AREA, then INTER_LINEAR;
+  ``ops/align.py::resize_u8``), ``warpAffine`` by an integer shift with a
+  replicated border (a gather with clamped indices: every bilinear weight
+  is 0 or 1), ``filter2D`` with the 1/k row kernel (float32 products summed
+  left to right, ``BORDER_REFLECT_101``, rounded half to even) and
+  ``cvtColor(BGR2GRAY)`` then ``GRAY2BGR`` (OpenCV 5.0's 15-bit fixed
+  point, (9798·R + 19235·G + 3735·B + 2^14) >> 15, bit-equal over all 2^24
+  colours, where OpenCV 4 took 14-bit coefficients).
+- :func:`gauss_noise`, :func:`gamma_contrast`, :func:`letterbox` are
+  numpy in JAX too and are copied.
+
+:func:`jpeg_recompress` and :func:`gaussian_blur` take ``[..., H, W, 3]``
+uint8 BGR images, as the JAX package hands them to cv2, and process
+leading axes (a clip's frames) at once; the rest take one ``[H, W, 3]``
+frame, as JAX's do.
 """
 
 from __future__ import annotations
 
+import random
+from typing import List, Sequence, Tuple
+
 import numpy as np
+
+from ..ops.align import resize_u8
 
 _LUMA = np.array([
     16, 11, 10, 16, 24, 40, 51, 61,
@@ -231,3 +257,130 @@ def gaussian_blur(img: np.ndarray, k: int) -> np.ndarray:
     s = sum(b[j] * rows[..., j:j + h, :, :] for j in range(k))
     # the fixed-point sum carries 8 fractional bits; rounding is half up
     return ((s * (256 // int(b.sum()) ** 2) + 128) >> 8).astype(np.uint8)
+
+
+
+def down_up(img: np.ndarray, scale: float) -> np.ndarray:
+    """INTER_AREA down to ``scale`` of the size, INTER_LINEAR back up."""
+    if scale >= 0.999:
+        return img
+    h, w = img.shape[:2]
+    small = resize_u8(img, (max(1, int(h * scale)), max(1, int(w * scale))), "area")
+    return resize_u8(small, (h, w), "linear")
+
+
+def offcenter_crop(img: np.ndarray, max_frac: float, rng: random.Random) -> np.ndarray:
+    """Shift by a random whole number of pixels (up to ``max_frac`` of each
+    side), the uncovered edge replicated."""
+    if max_frac <= 0:
+        return img
+    h, w = img.shape[:2]
+    dx = int(rng.uniform(-max_frac, max_frac) * w)
+    dy = int(rng.uniform(-max_frac, max_frac) * h)
+    rows = np.clip(np.arange(h) - dy, 0, h - 1)
+    cols = np.clip(np.arange(w) - dx, 0, w - 1)
+    return img[rows[:, None], cols]
+
+
+def motion_blur(img: np.ndarray, k: int) -> np.ndarray:
+    """Horizontal box blur of width ``k``."""
+    if k < 3:
+        return img
+    h, w = img.shape[:2]
+    p = k // 2
+    x = np.pad(img, [(0, 0), (p, p)] + [(0, 0)] * (img.ndim - 2),
+               mode="reflect").astype(np.float32)
+    c = np.float32(1.0 / k)
+    s = np.zeros(img.shape, np.float32)
+    for i in range(k):
+        s = s + x[:, i:i + w] * c
+    return np.clip(np.rint(s), 0, 255).astype(np.uint8)
+
+
+def grayscale(img: np.ndarray) -> np.ndarray:
+    x = img.astype(np.int32)
+    g = ((9798 * x[..., 2] + 19235 * x[..., 1] + 3735 * x[..., 0] + (1 << 14)) >> 15)
+    return np.repeat(g.astype(np.uint8)[..., None], 3, axis=-1)
+
+
+def gauss_noise(img: np.ndarray, sigma: float, rng: np.random.RandomState) -> np.ndarray:
+    noise = rng.randn(*img.shape) * sigma
+    return np.clip(img.astype(np.float32) + noise, 0, 255).astype(np.uint8)
+
+
+def gamma_contrast(img: np.ndarray, rng: random.Random) -> np.ndarray:
+    gamma = rng.uniform(0.7, 1.4)
+    alpha = rng.uniform(0.8, 1.2)
+    x = img.astype(np.float32) / 255.0
+    x = np.clip(alpha * (x ** gamma), 0, 1)
+    return (x * 255).astype(np.uint8)
+
+
+def letterbox(img: np.ndarray, rng: random.Random) -> np.ndarray:
+    h, w = img.shape[:2]
+    bar = int(rng.uniform(0.05, 0.15) * h)
+    out = img.copy()
+    out[:bar] = 0
+    out[h - bar:] = 0
+    return out
+
+
+class ClipDegrader:
+    """Randomized per-clip degradation chain (dataset_regen.py:211): one
+    JPEG quality, scale and blur size a clip, then per frame letterbox,
+    gamma/contrast, the off-center shift, down-up, motion blur, grayscale,
+    noise, a frame drop and the JPEG round trip, each with JAX's draws."""
+
+    def __init__(
+        self,
+        jpeg_q: Tuple[int, int] = (30, 85),
+        scale: Tuple[float, float] = (0.5, 1.0),
+        mblur_k: Tuple[int, int] = (0, 7),
+        offcenter: float = 0.08,
+        p_grayscale: float = 0.1,
+        p_gauss_noise: float = 0.2,
+        gauss_sigma: float = 6.0,
+        p_frame_drop: float = 0.05,
+        p_letterbox: float = 0.1,
+        p_gamma_contrast: float = 0.3,
+        seed: int = 0,
+    ):
+        self.jpeg_q = jpeg_q
+        self.scale = scale
+        self.mblur_k = mblur_k
+        self.offcenter = offcenter
+        self.p_grayscale = p_grayscale
+        self.p_gauss_noise = p_gauss_noise
+        self.gauss_sigma = gauss_sigma
+        self.p_frame_drop = p_frame_drop
+        self.p_letterbox = p_letterbox
+        self.p_gamma_contrast = p_gamma_contrast
+        self.rng = random.Random(seed)
+        self.nprng = np.random.RandomState(seed)
+
+    def __call__(self, frames: Sequence[np.ndarray]) -> List[np.ndarray]:
+        rng = self.rng
+        q = rng.randint(*self.jpeg_q)
+        s = rng.uniform(*self.scale)
+        mb_choices = [k for k in range(max(3, self.mblur_k[0] | 1), self.mblur_k[1] + 1, 2)]
+        mb = rng.choice(mb_choices) if (self.mblur_k[1] >= 3 and mb_choices) else 0
+        out: List[np.ndarray] = []
+        for im in frames:
+            im2 = im
+            if rng.random() < self.p_letterbox:
+                im2 = letterbox(im2, rng)
+            if rng.random() < self.p_gamma_contrast:
+                im2 = gamma_contrast(im2, rng)
+            im2 = offcenter_crop(im2, self.offcenter, rng)
+            im2 = down_up(im2, s)
+            if mb > 0 and rng.random() < 0.6:
+                im2 = motion_blur(im2, mb)
+            if rng.random() < self.p_grayscale:
+                im2 = grayscale(im2)
+            if rng.random() < self.p_gauss_noise:
+                im2 = gauss_noise(im2, self.gauss_sigma, self.nprng)
+            if rng.random() < self.p_frame_drop and len(out) >= max(1, len(frames) // 6):
+                continue
+            im2 = jpeg_recompress(im2, q)
+            out.append(im2)
+        return out if out else list(frames)

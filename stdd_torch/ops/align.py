@@ -8,7 +8,9 @@ canonical template, and every frame is warped with it. Every tensor
 function here takes any number of leading batch dimensions (clips). The
 host side at the end (numpy, one clip: ``find_similarity_np``,
 ``warp_affine_u8``, ``align_clip_host``) serves the dataset writer's
-``--aligned`` mode.
+``--aligned`` mode; its cv2 twins (``warp_perspective_u8``,
+``perspective_transform``, ``resize_u8``) serve the degradations, the
+regen dataset and the LibreFace alignment.
 
 Singular fits: padded batch slots carry all-zero landmarks, whose fit has
 ``sc = ss = 0``. The 4×4 normal equations and both inverses are therefore
@@ -283,33 +285,12 @@ def find_similarity_np(src: np.ndarray, dst: np.ndarray,
     return T1 if norm1 <= norm2 else T2
 
 
-def warp_affine_u8(img: np.ndarray, M: np.ndarray, out_hw, border: str = "constant") -> np.ndarray:
-    """``cv2.warpAffine(img, M, (w, h), INTER_LINEAR)`` on a uint8
-    ``[H, W, C]`` image in numpy: ``M`` is the forward 2×3 map, inverted
-    in float64 as cv2 inverts it; each output pixel samples the source at
-    the inverse map in float32, interpolates bilinearly in float32 and
-    rounds half to even. ``border`` is ``"constant"`` (taps outside the
-    image read 0, ``BORDER_CONSTANT``) or ``"replicate"`` (taps clamp to the
-    edge, ``BORDER_REPLICATE``). Against OpenCV 5.0's float32 warp it is
-    off by one grey level on fewer than 1 value in 10^4, and equal
-    elsewhere (``tests/test_torch_align.py``)."""
-    if border not in ("constant", "replicate"):
-        raise ValueError(f"warp_affine_u8: border {border!r} is not 'constant' or 'replicate'")
-    img = np.asarray(img)
-    squeeze = img.ndim == 2
-    if squeeze:
-        img = img[..., None]
+def _bilinear_u8(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, border: str) -> np.ndarray:
+    """Sample a uint8 ``[H, W, C]`` image at float32 source coordinates
+    ``sx``, ``sy`` ([oh, ow]): bilinear in float32, rounded half to even.
+    Taps outside the image read 0 (``"constant"``) or clamp to the edge
+    (``"replicate"``)."""
     H, W = img.shape[:2]
-    oh, ow = int(out_hw[0]), int(out_hw[1])
-    m = np.asarray(M, np.float64).reshape(6)
-    det = m[0] * m[4] - m[1] * m[3]
-    d = 1.0 / det if det != 0 else 0.0
-    a, b, c, e = m[4] * d, -m[1] * d, -m[3] * d, m[0] * d
-    inv = np.array([a, b, -a * m[2] - b * m[5], c, e, -c * m[2] - e * m[5]], np.float32)
-    xs = np.arange(ow, dtype=np.float32)[None, :]
-    ys = np.arange(oh, dtype=np.float32)[:, None]
-    sx = inv[0] * xs + (inv[1] * ys + inv[2])
-    sy = inv[3] * xs + (inv[4] * ys + inv[5])
     x0, y0 = np.floor(sx), np.floor(sy)
     fx, fy = (sx - x0)[..., None], (sy - y0)[..., None]
     x0 = np.clip(x0, -2, W + 1).astype(np.int64)
@@ -327,8 +308,226 @@ def warp_affine_u8(img: np.ndarray, M: np.ndarray, out_hw, border: str = "consta
     p10, p11 = tap(y0 + 1, x0), tap(y0 + 1, x0 + 1)
     top = p00 + (p01 - p00) * fx
     bot = p10 + (p11 - p10) * fx
-    out = np.clip(np.rint(top + (bot - top) * fy), 0, 255).astype(np.uint8)
+    return np.clip(np.rint(top + (bot - top) * fy), 0, 255).astype(np.uint8)
+
+
+def warp_affine_u8(img: np.ndarray, M: np.ndarray, out_hw, border: str = "constant") -> np.ndarray:
+    """``cv2.warpAffine(img, M, (w, h), INTER_LINEAR)`` on a uint8
+    ``[H, W, C]`` image in numpy: ``M`` is the forward 2×3 map, inverted
+    in float64 as cv2 inverts it; each output pixel samples the source at
+    the inverse map in float32, interpolates bilinearly in float32 and
+    rounds half to even. ``border`` is ``"constant"`` (taps outside the
+    image read 0, ``BORDER_CONSTANT``) or ``"replicate"`` (taps clamp to the
+    edge, ``BORDER_REPLICATE``). Against OpenCV 5.0's float32 warp it is
+    off by one grey level on fewer than 1 value in 10^4, and equal
+    elsewhere (``tests/test_torch_align.py``)."""
+    if border not in ("constant", "replicate"):
+        raise ValueError(f"warp_affine_u8: border {border!r} is not 'constant' or 'replicate'")
+    img = np.asarray(img)
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    m = np.asarray(M, np.float64).reshape(6)
+    det = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / det if det != 0 else 0.0
+    a, b, c, e = m[4] * d, -m[1] * d, -m[3] * d, m[0] * d
+    inv = np.array([a, b, -a * m[2] - b * m[5], c, e, -c * m[2] - e * m[5]], np.float32)
+    xs = np.arange(ow, dtype=np.float32)[None, :]
+    ys = np.arange(oh, dtype=np.float32)[:, None]
+    sx = inv[0] * xs + (inv[1] * ys + inv[2])
+    sy = inv[3] * xs + (inv[4] * ys + inv[5])
+    out = _bilinear_u8(img, sx, sy, border)
     return out[..., 0] if squeeze else out
+
+
+def perspective_transform(src, dst) -> np.ndarray:
+    """``cv2.getPerspectiveTransform(src, dst)`` (``DECOMP_LU``): the 3×3
+    float64 homography taking four float32 points ``src`` to ``dst``. The
+    8×8 system is built as cv2 builds it (the products of two float32
+    coordinates rounded to float32) and solved by cv2's Gaussian
+    elimination with partial pivoting, in the same order of operations,
+    so the matrix is cv2's bit for bit."""
+    s = np.asarray(src, np.float32).reshape(4, 2)
+    d = np.asarray(dst, np.float32).reshape(4, 2)
+    a = np.zeros((8, 8))
+    b = np.zeros(8)
+    for i in range(4):
+        a[i, 0] = a[i + 4, 3] = s[i, 0]
+        a[i, 1] = a[i + 4, 4] = s[i, 1]
+        a[i, 2] = a[i + 4, 5] = 1.0
+        a[i, 6], a[i, 7] = -s[i, 0] * d[i, 0], -s[i, 1] * d[i, 0]
+        a[i + 4, 6], a[i + 4, 7] = -s[i, 0] * d[i, 1], -s[i, 1] * d[i, 1]
+        b[i], b[i + 4] = d[i, 0], d[i, 1]
+    A, x = a.tolist(), b.tolist()                  # Python floats: IEEE double, one op at a time
+    for i in range(8):
+        k = max(range(i, 8), key=lambda j: abs(A[j][i]))    # the first of equal pivots
+        if abs(A[k][i]) < np.finfo(np.float64).eps * 10:
+            raise ValueError("perspective_transform: the four points are degenerate")
+        if k != i:
+            A[i], A[k] = A[k], A[i]
+            x[i], x[k] = x[k], x[i]
+        r = -1.0 / A[i][i]
+        for j in range(i + 1, 8):
+            alpha = A[j][i] * r
+            for c in range(i + 1, 8):
+                A[j][c] += alpha * A[i][c]
+            x[j] += alpha * x[i]
+    for i in range(7, -1, -1):
+        acc = x[i]
+        for c in range(i + 1, 8):
+            acc -= A[i][c] * x[c]
+        x[i] = acc / A[i][i]
+    return np.array(x + [1.0]).reshape(3, 3)
+
+
+def _invert3(m: np.ndarray) -> np.ndarray:
+    """cv2's closed-form 3×3 inverse (``invert`` for n = 3, float64)."""
+    (a, b, c), (d, e, f), (g, h, i) = np.asarray(m, np.float64).tolist()
+    det = a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
+    if det == 0:
+        raise ValueError("warp_perspective_u8: the homography is singular")
+    r = 1.0 / det
+    return np.array([[(e * i - f * h) * r, (c * h - b * i) * r, (b * f - c * e) * r],
+                     [(f * g - d * i) * r, (a * i - c * g) * r, (c * d - a * f) * r],
+                     [(d * h - e * g) * r, (b * g - a * h) * r, (a * e - b * d) * r]])
+
+
+def warp_perspective_u8(img: np.ndarray, M: np.ndarray, out_hw) -> np.ndarray:
+    """``cv2.warpPerspective(img, M, (w, h), INTER_LINEAR,
+    BORDER_CONSTANT)`` on a uint8 ``[H, W, C]`` image in numpy: ``M`` is the
+    forward 3×3 map, inverted in float64 as cv2 inverts it; each output
+    pixel maps through the inverse in float32, samples bilinearly in
+    float32 and rounds half to even; taps outside the image read 0.
+    Against OpenCV 5.0's float32 warp it is off by one grey level on fewer
+    than 5e-4 of the values (where cv2's fused multiply-adds put a value on
+    the other side of .5), and equal elsewhere
+    (``tests/test_torch_libreface.py``)."""
+    img = np.asarray(img)
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    m = _invert3(M).astype(np.float32).reshape(9)
+    xs = np.arange(ow, dtype=np.float32)[None, :]
+    ys = np.arange(oh, dtype=np.float32)[:, None]
+    w = m[6] * xs + (m[7] * ys + m[8])
+    sx = (m[0] * xs + (m[1] * ys + m[2])) / w
+    sy = (m[3] * xs + (m[4] * ys + m[5])) / w
+    out = _bilinear_u8(img, sx, sy, "constant")
+    return out[..., 0] if squeeze else out
+
+
+# cv2's fixed point for uint8 INTER_LINEAR (INTER_RESIZE_COEF_BITS)
+_RESIZE_BITS = 11
+
+
+def _linear_taps(n_src: int, n_dst: int, pin: bool):
+    """cv2's INTER_LINEAR taps along one axis: the two source indices and
+    their 11-bit weights. The coordinate is computed in float64, rounded
+    to float32, split into floor and fraction in float32; each weight is
+    the fraction scaled by 2^11 and rounded half to even. Along x
+    (``pin``) cv2 pins a tap left of 0 or right of the last column to that
+    column with weight (1, 0); along y the rows are only clamped."""
+    scale = 1.0 / (n_dst / n_src)
+    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    f = f - s
+    s = s.astype(np.int64)
+    if pin:
+        out = (s < 0) | (s >= n_src - 1)
+        f[out] = 0
+        s = np.clip(s, 0, n_src - 1)
+    one = np.float32(1 << _RESIZE_BITS)
+    w0 = np.rint((np.float32(1) - f) * one).astype(np.int32)
+    w1 = np.rint(f * one).astype(np.int32)
+    return np.clip(s, 0, n_src - 1), np.clip(s + 1, 0, n_src - 1), w0, w1
+
+
+def _area_taps(n_src: int, n_dst: int, scale: float):
+    """cv2's ``computeResizeAreaTab`` along one axis, as [taps, n_dst]
+    source indices and float32 weights in cv2's order (a zero weight pads
+    an output with fewer taps)."""
+    taps = [[] for _ in range(n_dst)]
+    for dx in range(n_dst):
+        f1 = dx * scale
+        f2 = f1 + scale
+        cell = min(scale, n_src - f1)
+        s2 = min(int(np.floor(f2)), n_src - 1)
+        s1 = min(int(np.ceil(f1)), s2)
+        if s1 - f1 > 1e-3:
+            taps[dx].append((s1 - 1, (s1 - f1) / cell))
+        taps[dx] += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            taps[dx].append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+    n = max(len(t) for t in taps)
+    idx = np.zeros((n, n_dst), np.int64)
+    wt = np.zeros((n, n_dst), np.float32)
+    for dx, t in enumerate(taps):
+        for j, (s, a) in enumerate(t):
+            idx[j, dx], wt[j, dx] = s, a
+    return idx, wt
+
+
+def resize_u8(img: np.ndarray, out_hw, interpolation: str = "linear") -> np.ndarray:
+    """``cv2.resize(img, (w, h), interpolation=INTER_LINEAR | INTER_AREA)``
+    of a uint8 ``[H, W]`` or ``[H, W, C]`` image in numpy, bit-equal to
+    OpenCV 5.0 (``tests/test_torch_degrade.py``).
+
+    - ``"linear"``: 11-bit weights (:func:`_linear_taps`), an exact integer
+      sum along x, then along y cv2's vector arithmetic: each row sum
+      shifted right by 4, multiplied by its weight and shifted right by 16,
+      the two added, then rounded by ``(v + 2) >> 2``.
+    - ``"area"``, a downscale: cv2's float32 area tables, the taps summed
+      in cv2's order in float32 along x, then along y, and rounded half
+      to even. An integer factor is cv2's fast path: a 2× box average
+      rounds ``(sum + 2) >> 2``, other factors ``sum · (1/n)`` in float32.
+
+    An exact 2× downscale is the area fast path in both modes, as cv2
+    takes it."""
+    if interpolation not in ("linear", "area"):
+        raise ValueError(f"resize_u8: interpolation {interpolation!r} is not 'linear' or 'area'")
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"resize_u8 wants uint8, got {img.dtype}")
+    H, W = img.shape[:2]
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    if oh <= 0 or ow <= 0:
+        raise ValueError(f"resize_u8: output size {ow}x{oh} is empty")
+    sx, sy = 1.0 / (ow / W), 1.0 / (oh / H)
+    ix, iy = int(np.rint(sx)), int(np.rint(sy))
+    fast = abs(sx - ix) < np.finfo(np.float64).eps and abs(sy - iy) < np.finfo(np.float64).eps
+    if interpolation == "linear" and fast and ix == iy == 2:
+        interpolation = "area"
+    lead = (slice(None),) + (None,) * (img.ndim - 1)       # broadcast a per-row weight
+    col = (None, slice(None)) + (None,) * (img.ndim - 2)    # ... and a per-column one
+    if interpolation == "area":
+        if sx < 1 or sy < 1:
+            raise ValueError(f"resize_u8: INTER_AREA upscales ({W}x{H} -> {ow}x{oh}) are not "
+                             "ported; only downscales")
+        if fast:
+            s = img[:iy * oh, :ix * ow].astype(np.int32).reshape(
+                (oh, iy, ow, ix) + img.shape[2:]).sum(axis=(1, 3))
+            if ix == iy == 2:
+                return ((s + 2) >> 2).astype(np.uint8)
+            return np.clip(np.rint(s.astype(np.float32) * np.float32(1.0 / (ix * iy))),
+                           0, 255).astype(np.uint8)
+        xi, xw = _area_taps(W, ow, sx)
+        yi, yw = _area_taps(H, oh, sy)
+        src = img.astype(np.float32)
+        buf = np.zeros((H, ow) + img.shape[2:], np.float32)
+        for j in range(len(xi)):
+            buf = buf + src[:, xi[j]] * xw[j][col]
+        acc = buf[yi[0]] * yw[0][lead]
+        for j in range(1, len(yi)):
+            acc = acc + buf[yi[j]] * yw[j][lead]
+        return np.clip(np.rint(acc), 0, 255).astype(np.uint8)
+    x0, x1, a0, a1 = _linear_taps(W, ow, pin=True)
+    y0, y1, b0, b1 = _linear_taps(H, oh, pin=False)
+    src = img.astype(np.int32)
+    rows = src[:, x0] * a0[col] + src[:, x1] * a1[col]
+    v = (((rows[y0] >> 4) * b0[lead]) >> 16) + (((rows[y1] >> 4) * b1[lead]) >> 16)
+    return np.clip((v + 2) >> 2, 0, 255).astype(np.uint8)
 
 
 def align_clip_host(

@@ -11,11 +11,13 @@ verdict logic matches the reference:
   the threshold (app_realtime.py:75 decide_meeting_fake)
 
 The overlay (``draw_overlay``), ``--show`` and ``--out_video`` draw with cv2,
-which the port does not use; they and the cv2 sources wait in ROADMAP.md,
-and their flags are refused by name rather than ignored.
+which the port does not use; they wait in ROADMAP.md §1 item 2, and their
+flags are refused by name rather than ignored, as are webcams and video
+containers other than ``.y4m``.
 
 CLI, on the card: ``python -m stdd_torch.runtime.app --source screen:TITLE
---det_model face_detection_yunet_2023mar.onnx [--ckpt REF.pth | --jax_ckpt CKPT]``.
+--det_model face_detection_yunet_2023mar.onnx [--ckpt REF.pth | --jax_ckpt CKPT]``,
+or ``--source VIDEO.y4m`` to score a file.
 """
 
 from __future__ import annotations
@@ -125,10 +127,10 @@ def run_loop(app: RealtimeApp, frames: Iterable[np.ndarray]) -> Tuple[bool, bool
 
 
 # flags of the JAX CLI whose parts are not ported yet: refused, never ignored
-_CV2_ITEM = "ROADMAP.md §1 item 2, the pieces of the detector and the app that wait"
+_CV2_ITEM = "ROADMAP.md §1 item 2: the overlay, the largest-tile picker and eval/viz"
 _NOT_PORTED = {
-    "--show": f"the cv2 overlay window ({_CV2_ITEM})",
-    "--out_video": f"the cv2 overlay and video writer ({_CV2_ITEM})",
+    "--show": f"the overlay and its window ({_CV2_ITEM})",
+    "--out_video": f"the overlay written as video ({_CV2_ITEM})",
     "--int8": "the int8 serving knob (ROADMAP.md §1 item 9)",
 }
 
@@ -136,8 +138,9 @@ _NOT_PORTED = {
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--source", required=True,
-                    help="'screen' (X11 full screen) | 'screen:TITLE' (largest "
-                         "window whose title contains TITLE, e.g. screen:Teams)")
+                    help="video path (.y4m) | 'screen' (X11 full screen) | "
+                         "'screen:TITLE' (largest window whose title contains "
+                         "TITLE, e.g. screen:Teams)")
     ap.add_argument("--capture_hz", type=float, default=8.0,
                     help="screen-capture pacing (win_capture.py target_hz)")
     ap.add_argument("--det_model", default=None,
@@ -186,10 +189,15 @@ def main(argv=None):
     for flag, why in _NOT_PORTED.items():
         if getattr(args, flag[2:]):
             raise SystemExit(f"{flag} is not ported yet: it waits for {why}")
-    if not (args.source == "screen" or args.source.startswith("screen:")):
-        raise SystemExit(
-            f"--source {args.source!r}: the port reads X11 capture only ('screen' or "
-            f"'screen:TITLE'); video files and webcams wait for the cv2 sources ({_CV2_ITEM})")
+    screen = args.source == "screen" or args.source.startswith("screen:")
+    if args.source.startswith("webcam"):
+        raise SystemExit(f"--source {args.source!r}: webcams stay unported, as no camera API "
+                         "is open to the port (ROADMAP.md §1 item 2); use 'screen', "
+                         "'screen:TITLE' or a .y4m file")
+    if not screen and not args.source.lower().endswith(".y4m"):
+        raise SystemExit(f"--source {args.source!r}: the port reads video files as YUV4MPEG2 "
+                         "(.y4m) only; decoding other containers waits for a decoder "
+                         "(ROADMAP.md §1 item 2)")
 
     import torch
 
@@ -232,11 +240,14 @@ def main(argv=None):
         print("warming up scorer...")
         engine.warmup()
     app = RealtimeApp(engine, threshold=args.threshold)
-    title = args.source.split(":", 1)[1] if ":" in args.source else None
-    frames = sources.iter_screen(
-        window_title=(title,) if title else None,
-        target_hz=args.capture_hz, max_frames=args.max_frames,
-    )
+    if screen:
+        title = args.source.split(":", 1)[1] if ":" in args.source else None
+        frames = sources.iter_screen(
+            window_title=(title,) if title else None,
+            target_hz=args.capture_hz, max_frames=args.max_frames,
+        )
+    else:
+        frames = sources.iter_video_file(args.source, max_frames=args.max_frames)
 
     activities = [torch.profiler.ProfilerActivity.CPU]
     if scorer.device.type == "cuda":
@@ -251,6 +262,7 @@ def main(argv=None):
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+    print(f"frames: {app.frames_seen}")
     print(f"meeting verdict: ready={ready} fake={fake}")
 
 

@@ -1,13 +1,14 @@
 """Frame sources for the live application.
 
-Port of ``stdd_tpu/runtime/sources.py`` (``iter_synthetic`` :68,
-``iter_screen`` :82, ``throttle`` :100). The reference's capture layer is
-Windows-only (PrintWindow/BitBlt window grabs in ``test/win_capture.py``);
-here a source is any iterator of BGR uint8 ``[H, W, 3]`` frames. The live
-call's source is X11 capture (:mod:`stdd_torch.runtime.x11_capture`, pure
-sockets and numpy). The video-file and webcam sources and the largest-tile
-picker (``LargestTilePicker``/``iter_roi``) need cv2, which the port does
-not use; ROADMAP.md queues them.
+Port of ``stdd_tpu/runtime/sources.py`` (``iter_video_file`` :22,
+``iter_synthetic`` :68, ``iter_screen`` :82, ``throttle`` :100). The
+reference's capture layer is Windows-only (PrintWindow/BitBlt window grabs
+in ``test/win_capture.py``); here a source is any iterator of BGR uint8
+``[H, W, 3]`` frames. The live call's source is X11 capture
+(:mod:`stdd_torch.runtime.x11_capture`, pure sockets and numpy); the
+offline stand-in is a ``.y4m`` file (:func:`iter_video_file`). The webcam
+source has no camera API the port may use, and the largest-tile picker
+(``LargestTilePicker``/``iter_roi``) waits in ROADMAP.md §1 item 2.
 """
 
 from __future__ import annotations
@@ -18,6 +19,33 @@ from typing import Callable, Iterable, Iterator, Optional, Tuple
 import numpy as np
 
 FrameIter = Iterator[np.ndarray]
+
+
+def iter_video_file(path: str, loop: bool = False, max_frames: Optional[int] = None) -> FrameIter:
+    """Frames of a ``.y4m`` file (the offline stand-in for window capture),
+    from the start again after the last when ``loop``, at most
+    ``max_frames`` in all. A file with no frame raises, so ``loop`` cannot
+    spin. Another container raises a ``ValueError`` naming it: its decoder
+    is not ported (ROADMAP.md §1 item 2)."""
+    from ..utils.video_io import read_y4m
+
+    if not path.lower().endswith(".y4m"):
+        raise ValueError(f"{path}: the port reads video files as YUV4MPEG2 (.y4m) only; "
+                         "decoding .mp4/.avi/.mov/.mkv waits for a decoder "
+                         "(ROADMAP.md §1 item 2)")
+    n = 0
+    while True:
+        n_this_pass = 0
+        for frame in read_y4m(path):
+            yield frame
+            n += 1
+            n_this_pass += 1
+            if max_frames is not None and n >= max_frames:
+                return
+        if n_this_pass == 0:
+            raise RuntimeError(f"no frames decodable from {path!r}")
+        if not loop:
+            return
 
 
 def iter_synthetic(

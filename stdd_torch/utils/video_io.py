@@ -10,14 +10,24 @@ nearest-neighbour chroma), so a frame is bit-equal to that conversion of the
 same planes. :func:`write_y4m` encodes with the port's I420 encoder
 (``runtime/packing.py::rgb_to_i420``, bit-equal to
 ``cv2.cvtColor(COLOR_RGB2YUV_I420)``).
+
+The helpers of ``stdd_tpu/utils/video_io.py`` (the reference's
+``test_tools/ct/detection/utils.py`` and ``__init__.py``) follow on
+``.y4m``: :func:`grab_all_frames`, :func:`get_clips_uniform` (which
+decodes only the frames its clips need) and :func:`scale_detect` (through
+``ops/align.py::resize_u8``, bit-equal to ``cv2.resize``), and the pure
+ones, :func:`sample_chunks`, :func:`weak_check`, :func:`check_valid_face`
+and :func:`get_valid_faces`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Iterator, Optional
+import os
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..ops.align import resize_u8
 from ..runtime.packing import rgb_to_i420
 
 MAGIC = b"YUV4MPEG2"
@@ -70,10 +80,11 @@ def i420_to_bgr(planes: np.ndarray, h: int, w: int) -> np.ndarray:
     return out.reshape(h, w, 3)
 
 
-def read_y4m(path: str, max_frames: Optional[int] = None) -> Iterator[np.ndarray]:
-    """Yield the BGR uint8 frames of a ``.y4m`` file, at most
-    ``max_frames``. A truncated last frame ends the stream, as a decoder's
-    read would."""
+def iter_y4m_planes(path: str, max_frames: Optional[int] = None
+                    ) -> Iterator[Tuple[bytes, int, int]]:
+    """Yield each frame's raw I420 bytes with the frame's height and width,
+    undecoded. A truncated last frame ends the stream, as a decoder's read
+    would."""
     with open(path, "rb") as f:
         tags = parse_header(f.readline(), path)
         w, h = int(tags["W"]), int(tags["H"])
@@ -88,8 +99,32 @@ def read_y4m(path: str, max_frames: Optional[int] = None) -> Iterator[np.ndarray
             buf = f.read(size)
             if len(buf) < size:
                 return
-            yield i420_to_bgr(np.frombuffer(buf, np.uint8), h, w)
+            yield buf, h, w
             n += 1
+
+
+def read_y4m(path: str, max_frames: Optional[int] = None) -> Iterator[np.ndarray]:
+    """Yield the BGR uint8 frames of a ``.y4m`` file, at most
+    ``max_frames``. A truncated last frame ends the stream, as a decoder's
+    read would."""
+    for buf, h, w in iter_y4m_planes(path, max_frames):
+        yield i420_to_bgr(np.frombuffer(buf, np.uint8), h, w)
+
+
+def count_y4m_frames(path: str) -> int:
+    """The number of whole frames of a ``.y4m`` file. When the first frame
+    header is a bare ``FRAME`` (no parameters) and the body is a whole
+    number of frames, the count comes from the file's size; otherwise the
+    file is scanned, header by header, without decoding."""
+    with open(path, "rb") as f:
+        header = f.readline()
+        tags = parse_header(header, path)
+        first = f.readline()
+    size = int(tags["W"]) * int(tags["H"]) * 3 // 2
+    body = os.path.getsize(path) - len(header)
+    if first == b"FRAME\n" and body % (len(first) + size) == 0:
+        return body // (len(first) + size)
+    return sum(1 for _ in iter_y4m_planes(path))
 
 
 def write_y4m(path: str, frames_bgr: Iterable[np.ndarray], fps: int = 30) -> int:
@@ -113,3 +148,94 @@ def write_y4m(path: str, frames_bgr: Iterable[np.ndarray], fps: int = 30) -> int
             f.write(planes.tobytes())
             n += 1
     return n
+
+
+# -- the reference's video and detection helpers -------------------------------
+
+def grab_all_frames(path: str, max_size: int, cvt: bool = False) -> List[np.ndarray]:
+    """Decode up to ``max_size`` frames (all of them when ``max_size`` < 1,
+    as the reference's count never meets it); ``cvt`` flips BGR→RGB
+    (detection/utils.py:17)."""
+    frames = read_y4m(path, max_size if max_size >= 1 else None)
+    return [f[..., ::-1].copy() if cvt else f for f in frames]
+
+
+def sample_chunks(items: Sequence, n: int, step: Optional[int] = None) -> List:
+    """Fixed-size windows at a stride (detection/utils.py:13)."""
+    step = step or n
+    return [items[i : i + n] for i in range(0, len(items), step) if i + n <= len(items)]
+
+
+def get_clips_uniform(path: str, count: int, clip_size: int) -> List[List[np.ndarray]]:
+    """``count`` uniformly spaced ``clip_size``-frame clips
+    (detection/utils.py:33); only the frames the clips hold are decoded."""
+    n_frames = count_y4m_frames(path)
+    max_clips = n_frames + 1 - clip_size
+    if max_clips <= 0:
+        return []
+    count = min(count, max_clips)
+    starts = np.linspace(0, max_clips - 1, count, endpoint=True, dtype=int)
+    all_idx = [list(range(s, s + clip_size)) for s in starts]
+    valid = {i for clip in all_idx for i in clip}
+    frames: Dict[int, np.ndarray] = {}
+    for idx, (buf, h, w) in enumerate(iter_y4m_planes(path, max(valid) + 1)):
+        if idx in valid:
+            frames[idx] = i420_to_bgr(np.frombuffer(buf, np.uint8), h, w)
+    return [
+        [frames[i] for i in clip]
+        for clip in all_idx
+        if all(i in frames for i in clip)
+    ]
+
+
+def weak_check(detect_res: Sequence[Sequence]) -> bool:
+    """At least ~0.75 faces per frame on average (test_tools/utils.py:9)."""
+    return sum(len(faces) for faces in detect_res) > len(detect_res) * 0.75
+
+
+def _bounded(v, lo, hi) -> bool:
+    return lo <= v <= hi
+
+
+def check_valid_face(face, w: int, h: int) -> bool:
+    """Box/landmarks inside the frame (detection/__init__.py:10)."""
+    box, pts = face[0], face[1]
+    if box[0] > box[2] or box[1] > box[3]:
+        return False
+    for idx, bound in zip(range(4), (w, h, w, h)):
+        if not _bounded(box[idx], 0, bound):
+            return False
+    for p in pts:
+        if not (_bounded(p[0], 0, w) and _bounded(p[1], 0, h)):
+            return False
+    return True
+
+
+def get_valid_faces(detect_results, w: int, h: int, scale: float = 1.0):
+    """Rescale detections to frame coords and drop out-of-frame faces
+    (detection/__init__.py:27 post_detect)."""
+    out = []
+    for frame_faces in detect_results:
+        kept = []
+        for box, lm, score in frame_faces:
+            face = (np.asarray(box) * scale, np.asarray(lm) * scale, score)
+            if check_valid_face(face, w=w, h=h):
+                kept.append(face)
+        out.append(kept)
+    return out
+
+
+def scale_detect(detector, images: Sequence[np.ndarray], max_res: int = 1920):
+    """Resolution-capped detection (detection/__init__.py:41
+    FaceDetector.scale_detect): cap the long side at ``max_res``, detect at
+    half that resolution, rescale results back.
+
+    ``detector(frames) -> per-frame [(box, lm5, score)]`` at the detect
+    resolution.
+    """
+    h, w = images[0].shape[:2]
+    init_scale = max(h, w) / max_res if max(h, w) > max_res else 1
+    resize_scale = 2 * init_scale
+    rw, rh = int(w / resize_scale), int(h / resize_scale)
+    small = [resize_u8(f, (rh, rw)) for f in images]
+    return get_valid_faces(detector(small), w=w, h=h, scale=resize_scale)

@@ -47,7 +47,7 @@ def test_every_module_imports_without_jax_cv2_or_stdd_tpu():
     res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                          cwd=str(ROOT), env=env, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert int(res.stdout.split()[-1]) >= 79      # every module of the slices so far was walked
+    assert int(res.stdout.split()[-1]) >= 83      # every module of the slices so far was walked
 
 
 def test_run_dual_help_runs_without_jax():
@@ -80,10 +80,11 @@ def test_run_dual_help_runs_without_jax():
 @pytest.mark.parametrize("module,flag", [("stdd_torch.eval.harness", "--video_list"),
                                          ("stdd_torch.eval.demo", "--max_frame"),
                                          ("stdd_torch.runtime.app", "--ckpt"),
-                                         ("stdd_torch.eval.synth_e2e", "--require_tpu")])
+                                         ("stdd_torch.eval.synth_e2e", "--require_tpu"),
+                                         ("stdd_torch.data.libreface_align", "--au_ckpt")])
 def test_eval_cli_help_runs_without_jax(module, flag):
-    """The evaluation CLIs' ``--help`` (the synthetic capstone's too) on a
-    host where jax, flax, optax, cv2, scikit-learn and ``stdd_tpu`` cannot
+    """The evaluation CLIs' ``--help`` (the synthetic capstone's and the
+    LibreFace alignment's too) on a host where jax, flax, optax, cv2, scikit-learn and ``stdd_tpu`` cannot
     be imported."""
     script = textwrap.dedent(f"""
         import runpy, sys

@@ -89,3 +89,101 @@ def test_header_defaults_and_truncated_last_frame(tmp_path):
         write_y4m(str(tmp_path / "m.y4m"), [np.zeros((4, 6, 3), np.uint8),
                                             np.zeros((6, 4, 3), np.uint8)])
     assert os.path.getsize(path) > 0
+
+
+# -- the helpers of stdd_tpu/utils/video_io.py ----------------------------------
+# JAX's helpers decode through cv2.VideoCapture, which is patched (this test
+# only) to the port's reader; so the helpers' selection of frames, and not
+# the two decoders, is compared: every frame and row must be equal.
+
+from stdd_tpu.utils import video_io as jax_vio  # noqa: E402
+from stdd_torch.utils import video_io as vio  # noqa: E402
+
+from torch_port_helpers import install_y4m_capture  # noqa: E402
+
+
+@pytest.fixture
+def video(tmp_path):
+    path = str(tmp_path / "v.y4m")
+    write_y4m(path, _frames(n=20, hw=(48, 64), seed=2))
+    return path
+
+
+def _same_frames(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_grab_all_frames_and_clips_match_jax(video, monkeypatch):
+    install_y4m_capture(monkeypatch)
+    for max_size, cvt in ((10, False), (7, True), (0, False), (50, True)):
+        _same_frames(vio.grab_all_frames(video, max_size, cvt),
+                     jax_vio.grab_all_frames(video, max_size, cvt))
+    for count, clip in ((3, 5), (1, 20), (40, 4), (2, 21), (5, 1)):
+        got = vio.get_clips_uniform(video, count, clip)
+        want = jax_vio.get_clips_uniform(video, count, clip)
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _same_frames(g, w)
+
+
+def test_frame_count_from_the_size_or_a_scan(tmp_path, video):
+    """A bare ``FRAME`` header: the count comes from the file's size; frame
+    parameters or a truncated last frame: from a scan of the headers."""
+    assert vio.count_y4m_frames(video) == 20
+    raw = open(video, "rb").read()
+    with_params = raw.replace(b"FRAME\n", b"FRAME Ixyz\n")
+    p = str(tmp_path / "params.y4m")
+    open(p, "wb").write(with_params)
+    assert vio.count_y4m_frames(p) == 20
+    _same_frames(list(read_y4m(p)), list(read_y4m(video)))
+    open(p, "wb").write(raw[:-100])
+    assert vio.count_y4m_frames(p) == 19
+    clips = vio.get_clips_uniform(p, 2, 19)
+    assert len(clips) == 1 and len(clips[0]) == 19
+
+
+def test_detection_helpers_match_jax():
+    faces = [[(np.array([1, 2, 10, 12]), np.ones((5, 2)) * 5, 0.9),
+              (np.array([12, 2, 10, 12]), np.ones((5, 2)) * 5, 0.8)],
+             [], [(np.array([1, 2, 19, 19]), np.full((5, 2), 19.5), 0.7)]]
+    assert vio.sample_chunks(list(range(10)), 4, 3) == jax_vio.sample_chunks(
+        list(range(10)), 4, 3)
+    assert vio.sample_chunks(list(range(9)), 3) == jax_vio.sample_chunks(list(range(9)), 3)
+    for res in (faces, faces[:1], [[], []]):
+        assert vio.weak_check(res) == jax_vio.weak_check(res)
+    for w, h, scale in ((20, 20, 1.0), (15, 15, 2.0), (40, 40, 2.0), (19, 19, 1.0)):
+        got = vio.get_valid_faces(faces, w=w, h=h, scale=scale)
+        want = jax_vio.get_valid_faces(faces, w=w, h=h, scale=scale)
+        assert [len(f) for f in got] == [len(f) for f in want]
+        for g, wnt in zip(got, want):
+            for (b, lm, s), (b2, lm2, s2) in zip(g, wnt):
+                np.testing.assert_array_equal(b, b2)
+                np.testing.assert_array_equal(lm, lm2)
+                assert s == s2
+
+
+@pytest.mark.parametrize("hw,max_res", [((2400, 3840), 1920), ((97, 131), 1920),
+                                        ((301, 403), 200)], ids=["4k", "small", "capped_odd"])
+def test_scale_detect_matches_jax(hw, max_res):
+    """The frames the detector sees (cv2.resize INTER_LINEAR, bit-equal)
+    and the rescaled rows."""
+    seen = {}
+
+    def detector(tag):
+        def det(frames_small):
+            seen.setdefault(tag, []).extend(frames_small)
+            h, w = frames_small[0].shape[:2]
+            return [[(np.array([1.0, 1.0, w / 2, h / 2]), np.ones((5, 2)) * 2, 0.9),
+                     (np.array([0.0, 0.0, w + 1.0, h]), np.ones((5, 2)), 0.5)]
+                    for _ in frames_small]
+        return det
+
+    images = [np.random.RandomState(i).randint(0, 256, hw + (3,)).astype(np.uint8)
+              for i in range(2)]
+    got = vio.scale_detect(detector("port"), images, max_res)
+    want = jax_vio.scale_detect(detector("jax"), images, max_res)
+    _same_frames(seen["port"], seen["jax"])
+    assert [len(f) for f in got] == [len(f) for f in want] == [1, 1]
+    np.testing.assert_array_equal(got[0][0][0], want[0][0][0])

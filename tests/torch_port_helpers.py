@@ -133,3 +133,53 @@ def flax_without_dropout():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(nn, "Dropout", Identity)
         yield
+
+
+
+class Y4mCapture:
+    """A stand-in for ``cv2.VideoCapture`` that decodes a ``.y4m`` with the
+    port's reader, for feeding the JAX package the port's frames: cv2's own
+    ``.y4m`` decode lies up to 3 grey levels from ``cvtColor``, which the
+    port matches. ``count`` is what ``CAP_PROP_FRAME_COUNT`` reports."""
+
+    def __init__(self, path, count: float):
+        from stdd_torch.utils.video_io import read_y4m
+
+        self._count = count
+        self._frames = read_y4m(path)
+        self._held = None
+
+    def grab(self):
+        self._held = next(self._frames, None)
+        return self._held is not None
+
+    def retrieve(self):
+        return (self._held is not None), self._held
+
+    def read(self):
+        return self.retrieve() if self.grab() else (False, None)
+
+    def get(self, prop):
+        import cv2
+
+        assert prop == cv2.CAP_PROP_FRAME_COUNT, prop
+        return self._count
+
+    def release(self):
+        self._frames = iter(())
+
+
+def install_y4m_capture(monkeypatch):
+    """Patch ``cv2.VideoCapture``, for one test, to a :class:`Y4mCapture`
+    whose frame count is cv2's own count of the file."""
+    import cv2
+
+    real = cv2.VideoCapture
+
+    def capture(path):
+        cap = real(path)
+        count = cap.get(cv2.CAP_PROP_FRAME_COUNT)
+        cap.release()
+        return Y4mCapture(path, count)
+
+    monkeypatch.setattr(cv2, "VideoCapture", capture)
