@@ -188,9 +188,41 @@ exits non-zero without its result line):
               of each step, the landmarks against the renderer's mesh
               (``PRE_PX_TOL``), K1/K2 unlaunched.
 
+30. overlay — the app with the overlay over a 720p ``BenchScene`` ``.y4m``
+              of one face (120 frames, oracle rows) at ``app``'s point:
+              fps without and with the overlay (``run_loop`` with
+              ``out_video`` and ``on_frame``), the overlay's ms a frame, K1
+              launches equal to the dispatched batches, the written file
+              decoded against the ``.y4m`` round trip of the in-memory
+              overlays (0 difference), the boxes drawn; then ``python -m
+              stdd_torch.runtime.app --source FILE --out_video O.y4m`` over
+              32 frames on the YuNet-shaped random graph exits 0 and writes
+              them;
+31. viz     — ``visualize_detections``, ByteTracker + ``visualize_tracks``
+              and the packaged landmarker on the card + ``draw_dense_landmarks``
+              over 24 of those frames and their oracle rows: ms a frame of
+              each and the landmarker's share; then ``python -m
+              stdd_torch.eval.viz`` on a ``.y4m`` (``--track
+              --dense_landmarks``) and on a PNG against the random graph
+              (``"detections_real": false``);
+32. tile    — ``LargestTilePicker.pick`` (host numpy) on four rendered 1080p
+              2×2 call grids (``BenchScene`` tiles, 4-px gutters) and on two
+              frames with no tile: the picks against the tiles drawn (most
+              must be one, IoU ≥ ``TILE_IOU``), the whole frame with no
+              motion reference, the motion fallback after; ms a frame;
+33. multigrid — ``stdd_torch.train.measure_multigrid --steps_per_epoch 2``:
+              ``MultigridConfig()`` at I3D-R50 32×224² bf16 through its four
+              long-cycle shapes (45 epochs), the step rebuilt at each, a
+              bitwise checkpoint restore mid-schedule, precise-BN, a finite
+              loss and the held-out AUC; ms a step and peak memory a shape;
+34. geo_jitter — ``I3DClipDataset`` items at ``geo_jitter`` 1.0 and 0 on a
+              32×224² clip tree (host seconds an item), and one
+              ``run_i3d``-shaped step (bf16, batch 8) on jittered clips.
+              K1 and K2 stay unlaunched in 31-34.
+
 The K2 phases (10) run before the scorer (4) in the script, as they did,
-the evaluation phases (21-25) before training (13), and phases 26-29
-last.
+the evaluation phases (21-25) before training (13), and phases 26-29, then
+30-34, last.
 Every measurement is printed as one JSON object per line; then the
 ``{"kernels": [...]}`` line (with each kernel's launches on every path that
 counted them), the nvidia-smi line, and last
@@ -3328,6 +3360,327 @@ def phase_data_file(dev, smi: str, scorer) -> dict:
             "fused_bottleneck": {"app_file": k2a, "regen": k2r, "vox": k2v, "libreface": k2l}}
 
 
+# -- phases 30-34: the overlay, the annotator, the tile picker, multigrid, geo_jitter --
+
+OVERLAY_HW, OVERLAY_FRAMES, OVERLAY_CLI_FRAMES = (720, 1280), 120, 32
+VIZ_FRAMES, VIZ_CLI_FRAMES, VIZ_DET_SIZE = 24, 6, 320
+TILE_HW, TILE_GUTTER, TILE_FRAMES = (1080, 1920), 4, 4
+TILE_IOU = 0.98            # the picked rectangle against the tile drawn (edges eat ~1 px)
+TILE_MIN_HITS = 3          # of TILE_FRAMES grids
+MULTIGRID_ARGS = ["--steps_per_epoch", "2"]
+# MultigridConfig()'s long-cycle shapes, (batch, T, S)
+MULTIGRID_SHAPES = {(64, 8, 158), (32, 16, 158), (16, 16, 224), (8, 32, 224)}
+GEO_ITEMS = 4
+
+
+def run_overlay_app(scorer, frames, rows, out_video=None) -> dict:
+    """``run_app_over``'s app and point, overlaid when ``out_video`` is
+    given: each overlay kept (``on_frame``) and written; ``draw_overlay``'s
+    wall time summed. K1's count zeroed just before the run, read after."""
+    from stdd_torch.eval.synth_e2e import OracleDetector
+
+    pipe = PipelineConfig(**ENGINE_PIPE)
+    oracle = OracleDetector({"v": rows}, pipe.detect_every, 0.0).switch("v")
+    eng = StreamingEngine(scorer, AsyncDetector(oracle), cfg=pipe, **ENGINE_KW)
+    app = RealtimeApp(eng, threshold=pipe.threshold)
+    t = {"overlay": 0.0}
+    app.draw_overlay = TimedCall(app.draw_overlay, t, "overlay")
+    overlays = []
+    try:
+        eng.warmup()
+        seq0 = eng._group._next_seq
+        warp_affine.launches = fused_bottleneck.launches = 0      # the run starts here
+        t0 = time.perf_counter()
+        ready, fake = run_loop(app, iter(frames), out_video=out_video,
+                               on_frame=overlays.append if out_video else None)
+        dt = time.perf_counter() - t0
+        launches, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+        batches = eng._group._next_seq - seq0
+    finally:
+        eng.close()
+    return {"fps": app.frames_seen / dt, "frames_seen": app.frames_seen, "overlays": overlays,
+            "overlay_ms": 1000.0 * t["overlay"] / max(1, len(overlays)),
+            "scores": {int(k): [float(p) for p in v] for k, v in app.running_scores.items()},
+            "ready": bool(ready), "fake": bool(fake), "k1_launches": launches, "k2_launches": k2,
+            "batches_dispatched": batches}
+
+
+def phase_overlay(scorer, smi: str, tmp_dir: str, onnx: str):
+    """The app with the overlay over a 720p ``.y4m`` of one face (120
+    frames, oracle rows) at ``app``'s point: fps without and with the
+    overlay written by ``--out_video``'s path, the overlay's ms a frame, K1
+    = scored batches, the written file decoded against the in-memory
+    overlays' ``.y4m`` round trip, the boxes drawn; then the CLI with
+    ``--out_video``. → (K1, K2) launches of the overlay run."""
+    from stdd_torch.eval.bench_scene import BenchScene
+    from stdd_torch.utils.video_io import read_y4m, write_y4m
+
+    scene = BenchScene(OVERLAY_HW, n_faces=1, seed=SEED + 70, device=str(scorer.device))
+    src = os.path.join(tmp_dir, "call.y4m")
+    write_y4m(src, (scene.frame(i) for i in range(OVERLAY_FRAMES)))      # set-up
+    frames = list(read_y4m(src))
+    rows = oracle_rows(scene, OVERLAY_FRAMES)
+    plain = run_overlay_app(scorer, frames, rows)
+    out = os.path.join(tmp_dir, "overlay.y4m")
+    ov = run_overlay_app(scorer, frames, rows, out_video=out)
+    ref = os.path.join(tmp_dir, "overlay_ref.y4m")
+    write_y4m(ref, ov["overlays"])
+    got = list(read_y4m(out))
+    diff = max((int(np.abs(g.astype(int) - w).max()) for g, w in zip(got, read_y4m(ref))),
+               default=-1)
+    green_red = [np.array([0, 255, 0]), np.array([0, 0, 255])]
+    boxed = sum(bool(any(((o == c).all(-1) & ~(f == c).all(-1)).sum() > 100 for c in green_red))
+                for o, f in zip(ov["overlays"], frames))
+    cli_out = os.path.join(tmp_dir, "cli_overlay.y4m")
+    cmd = [sys.executable, "-m", "stdd_torch.runtime.app", "--source", src, "--max_frames",
+           str(OVERLAY_CLI_FRAMES), "--det_model", onnx, "--no_warmup", "--out_video", cli_out]
+    t0 = time.perf_counter()
+    cli = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    cli_frames = sum(1 for _ in read_y4m(cli_out)) if os.path.isfile(cli_out) else 0
+    r = {"phase": "overlay", "card": smi, "frame_hw": list(OVERLAY_HW), "frames": OVERLAY_FRAMES,
+         "detector": "BenchScene.oracle rows", "detections_real": False,
+         "fps_without_overlay": plain["fps"], "fps_with_overlay": ov["fps"],
+         "overlay_ms_per_frame": ov["overlay_ms"], "frames_written": len(got),
+         "file_vs_memory_max_diff": diff, "frames_with_box_drawn": boxed,
+         "k1_launches": ov["k1_launches"], "batches_dispatched": ov["batches_dispatched"],
+         "k2_launches": ov["k2_launches"], "scored_tracks": ov["scores"],
+         "scores_equal_without_overlay": ov["scores"] == plain["scores"],
+         "meeting_ready": ov["ready"], "meeting_fake": ov["fake"],
+         "cli_rc": cli.returncode, "cli_seconds": cli_s, "cli_frames_written": cli_frames}
+    emit(r)
+    flat = [p for v in ov["scores"].values() for p in v]
+    if not (ov["k1_launches"] == ov["batches_dispatched"] > 0 and not ov["k2_launches"] and flat
+            and np.isfinite(flat).all() and ov["frames_seen"] == OVERLAY_FRAMES):
+        raise AssertionError(f"overlay: K1 {ov['k1_launches']}, batches "
+                             f"{ov['batches_dispatched']}, scores {ov['scores']}")
+    if not (len(got) == OVERLAY_FRAMES and diff == 0 and boxed > OVERLAY_FRAMES // 2):
+        raise AssertionError(f"overlay: {len(got)} frames written, file vs memory {diff}, "
+                             f"{boxed} frames with a box")
+    if cli.returncode != 0 or cli_frames != OVERLAY_CLI_FRAMES:
+        raise AssertionError(f"overlay: the CLI exited {cli.returncode} with {cli_frames} "
+                             f"frames written: {cli.stderr[-2000:]}")
+    return ov["k1_launches"], ov["k2_launches"], scene
+
+
+def phase_viz(dev, smi: str, tmp_dir: str, onnx: str, scene):
+    """``visualize_detections``, ByteTracker + ``visualize_tracks`` and the
+    packaged landmarker + ``draw_dense_landmarks`` on the overlay scene's
+    720p frames and oracle rows, the landmarker on the card: ms a frame of
+    each; then the CLI over a ``.y4m`` (``--track --dense_landmarks``) and
+    a PNG, on the YuNet-shaped random graph."""
+    from stdd_torch.eval.viz import draw_dense_landmarks, visualize_detections, visualize_tracks
+    from stdd_torch.models.facemesh import DenseLandmarker
+    from stdd_torch.track.byte_tracker import ByteTracker
+    from stdd_torch.utils.image_io import imwrite
+    from stdd_torch.utils.video_io import read_y4m, write_y4m
+
+    frames = [scene.frame(i) for i in range(VIZ_FRAMES)]                  # set-up
+    rows = oracle_rows(scene, VIZ_FRAMES)
+    lm = DenseLandmarker.pretrained(device=dev)
+    tracker = ByteTracker(track_thresh=0.5, match_thresh=0.8, track_buffer=30,
+                          split_low_scores=False)
+    t = {"detections": 0.0, "tracks": 0.0, "landmarker": 0.0, "dense_draw": 0.0}
+    drawn = 0
+    for f, r in zip(frames, rows):
+        t0 = time.perf_counter()
+        a = visualize_detections(f, r)
+        t1 = time.perf_counter()
+        tlbr = np.stack([r[:, 0], r[:, 1], r[:, 0] + r[:, 2], r[:, 1] + r[:, 3], r[:, 14]], 1)
+        b = visualize_tracks(f, tracker.update(tlbr))
+        t2 = time.perf_counter()
+        pts = [lm(f[:, :, ::-1], (x, y, x + w, y + h)) for x, y, w, h in r[:, :4]]
+        t3 = time.perf_counter()
+        for p in pts:
+            draw_dense_landmarks(b, p, copy=False)
+        t4 = time.perf_counter()
+        for k, dt in zip(t, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            t[k] += dt
+        drawn += int((a != f).any()) + int((b != f).any())
+    ms = {k: 1000.0 * v / VIZ_FRAMES for k, v in t.items()}
+    src, png = os.path.join(tmp_dir, "viz.y4m"), os.path.join(tmp_dir, "viz.png")
+    write_y4m(src, frames[:VIZ_CLI_FRAMES])
+    imwrite(png, frames[0])
+    clis = {}
+    for name, inp, extra in (("y4m", src, ["--track", "--dense_landmarks"]), ("png", png, [])):
+        out = os.path.join(tmp_dir, f"viz_out.{name}")
+        cmd = [sys.executable, "-m", "stdd_torch.eval.viz", "--input", inp, "--output", out,
+               "--det_model", onnx, "--det_size", str(VIZ_DET_SIZE)] + extra
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        clis[name] = {"rc": res.returncode, "seconds": time.perf_counter() - t0,
+                      "written": os.path.isfile(out) and os.path.getsize(out) > 0,
+                      "stdout": res.stdout.strip().splitlines()[-1:], "stderr": res.stderr[-1500:]}
+    clis["y4m"]["frames"] = sum(1 for _ in read_y4m(os.path.join(tmp_dir, "viz_out.y4m"))) \
+        if clis["y4m"]["written"] else 0
+    r = {"phase": "viz", "card": smi, "frame_hw": list(OVERLAY_HW), "frames": VIZ_FRAMES,
+         "detector": "BenchScene.oracle rows", "detections_real": False,
+         "ms_per_frame": ms, "landmarker_share": ms["landmarker"] / sum(ms.values()),
+         "frames_drawn": drawn,
+         "cli": {k: {kk: vv for kk, vv in v.items() if kk != "stderr"} for k, v in clis.items()},
+         "cli_detector": "YuNet-shaped random graph"}
+    emit(r)
+    if drawn != 2 * VIZ_FRAMES:
+        raise AssertionError(f"viz: {drawn} of {2 * VIZ_FRAMES} annotated frames changed")
+    for name, c in clis.items():
+        if c["rc"] != 0 or not c["written"]:
+            raise AssertionError(f"viz: the CLI on the {name} exited {c['rc']}: {c['stderr']}")
+    if clis["y4m"]["frames"] != VIZ_CLI_FRAMES:
+        raise AssertionError(f"viz: the CLI wrote {clis['y4m']['frames']} frames")
+
+
+def call_grid(seed: int, dev):
+    """A 1080p 2×2 call grid: four ``BenchScene`` tiles between thin
+    gutters reaching the frame's edges (a gallery view). → (frame, tiles as
+    (x1, y1, x2, y2))."""
+    from stdd_torch.eval.bench_scene import BenchScene
+
+    H, W = TILE_HW
+    g = TILE_GUTTER
+    h, w = H // 2 - g // 2, W // 2 - g // 2
+    frame = np.full((H, W, 3), 16, np.uint8)
+    tiles = []
+    for i, (y, x) in enumerate(((0, 0), (0, W // 2 + g // 2), (H // 2 + g // 2, 0),
+                                (H // 2 + g // 2, W // 2 + g // 2))):
+        frame[y:y + h, x:x + w] = BenchScene((h, w), n_faces=1, seed=seed + i,
+                                             device=str(dev)).frame(0)
+        tiles.append((x, y, x + w, y + h))
+    return frame, tiles
+
+
+def iou(a, b) -> float:
+    ix = max(0, min(a[2], b[2]) - max(a[0], b[0]))
+    iy = max(0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = ix * iy
+    return inter / ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter)
+
+
+def phase_tile(dev, smi: str):
+    """``LargestTilePicker.pick`` (host numpy) on 1080p 2×2 call grids and
+    on frames with no tile (noise: the first has no motion reference, the
+    next fall back on motion): the picked rectangle against the tile drawn,
+    and ms a frame."""
+    from stdd_torch.runtime.sources import LargestTilePicker
+
+    grids = [call_grid(SEED + 80 + 4 * k, dev) for k in range(TILE_FRAMES)]  # set-up
+    noise = [np.random.RandomState(SEED + k).randint(0, 256, TILE_HW + (3,)).astype(np.uint8)
+             for k in range(2)]
+    picker = LargestTilePicker()
+    picks, ms = [], []
+    for frame, tiles in grids:
+        t0 = time.perf_counter()
+        r = picker.pick(frame)
+        ms.append(1000.0 * (time.perf_counter() - t0))
+        picks.append({"rect": list(r), "best_iou": max(iou(r, t) for t in tiles),
+                      "tile": int(np.argmax([iou(r, t) for t in tiles]))})
+    no_tile = []
+    fresh = LargestTilePicker()
+    for f in noise:
+        t0 = time.perf_counter()
+        no_tile.append(list(fresh.pick(f)))
+        ms.append(1000.0 * (time.perf_counter() - t0))
+    H, W = TILE_HW
+    r = {"phase": "tile", "card": smi, "frame_hw": list(TILE_HW), "gutter_px": TILE_GUTTER,
+         "grid_picks": picks, "tile_hits": sum(p["best_iou"] >= TILE_IOU for p in picks), "no_tile_picks": no_tile, "ms_per_frame": ms,
+         "ms_median": float(np.median(ms)), "device": "host (numpy)"}
+    emit(r)
+    # the JAX heuristic (ported as it is) can leak through a stretch of
+    # gutter where a tile's content is as dark as the gutter: such a pick is
+    # recorded; most picks must be a drawn tile
+    if sum(p["best_iou"] >= TILE_IOU for p in picks) < TILE_MIN_HITS:
+        raise AssertionError(f"tile: picks {picks}: fewer than {TILE_MIN_HITS} of "
+                             f"{len(picks)} are a drawn tile (IoU ≥ {TILE_IOU})")
+    if no_tile[0] != [0, 0, W, H] or no_tile[1] == [0, 0, W, H]:
+        raise AssertionError(f"tile: frames with no tile picked {no_tile}")
+
+
+def phase_multigrid(smi: str):
+    """``python -m stdd_torch.train.measure_multigrid --steps_per_epoch 2``
+    in this process: the production schedule at 32×224² bf16."""
+    from stdd_torch.train import measure_multigrid
+
+    t0 = time.perf_counter()
+    rec = measure_multigrid.main(MULTIGRID_ARGS)
+    emit({"phase": "multigrid", "card": smi, "seconds": time.perf_counter() - t0,
+          "args": MULTIGRID_ARGS, "record": "the multigrid_long_cycle_epoch line above"})
+    shapes = {tuple(s["shape"]) for s in rec["shapes"]}
+    if not (rec["losses_finite"] and rec["resume_drill"] and rec["resume_drill"]["bitwise_identical"]
+            and shapes == MULTIGRID_SHAPES and rec["precise_bn_stem_moved"] > 0
+            and 0.0 <= rec["eval_auc_after_precise_bn"] <= 1.0):
+        raise AssertionError(f"multigrid: {rec}")
+
+
+def phase_geo_jitter(dev, smi: str, tmp_dir: str):
+    """``I3DClipDataset`` items at ``geo_jitter`` 1.0 and 0 on a 32×224²
+    clip tree (the host's seconds an item), then one ``run_i3d``-shaped
+    step (I3D-R50 bf16, batch 8, ImageNet-normalized) on jittered clips."""
+    from stdd_torch.data.dataset_i3d import I3DClipDataset
+    from stdd_torch.models.i3d import I3D, IMAGENET_MEAN, IMAGENET_STD
+    from stdd_torch.train.engine_i3d import I3DTrainArgs, init_i3d_training
+
+    root = os.path.join(tmp_dir, "clips")
+    write_clip_tree(root, np.random.RandomState(SEED + 90))                 # set-up
+    secs = {}
+    for g in (1.0, 0.0):
+        ds = I3DClipDataset(root_dir=root, T=TRAIN_T, is_train=True, seed=SEED, geo_jitter=g)
+        t0 = time.perf_counter()
+        for i in range(GEO_ITEMS):
+            ds[i]
+        secs[g] = (time.perf_counter() - t0) / GEO_ITEMS
+    ds = I3DClipDataset(root_dir=root, T=TRAIN_T, is_train=True, seed=SEED, geo_jitter=1.0)
+    clips, ys = next(ds.batches(8, seed=SEED))
+    model = I3D(I3DConfig(num_frames=TRAIN_T, crop_size=TRAIN_S), dtype=torch.bfloat16).to(dev)
+    state, step_fn, _ = init_i3d_training(model, I3DTrainArgs(steps_per_epoch=1, max_epoch=1))
+    mean, std = (torch.as_tensor(a, device=dev) for a in (IMAGENET_MEAN, IMAGENET_STD))
+    x = (torch.from_numpy(clips).to(dev).float() - mean) / std
+    fused_bottleneck.launches = warp_affine.launches = 0          # the geo_jitter path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, x, torch.from_numpy(ys).to(dev), SEED)
+    loss = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    k1, k2 = warp_affine.launches, fused_bottleneck.launches
+    r = {"phase": "geo_jitter", "card": smi, "clip": [TRAIN_T, TRAIN_S, TRAIN_S],
+         "host_s_per_item_geo_1": secs[1.0], "host_s_per_item_geo_0": secs[0.0],
+         "geo_share_of_item": 1.0 - secs[0.0] / secs[1.0], "batch": len(ys),
+         "step_loss": loss, "first_step_s": step_s, "k1_launches": k1, "k2_launches": k2}
+    emit(r)
+    if not (np.isfinite(loss) and clips.shape == (8, TRAIN_T, TRAIN_S, TRAIN_S, 3)):
+        raise AssertionError(f"geo_jitter: loss {loss}, clips {clips.shape}")
+    return k1, k2
+
+
+def phase_slice13(dev, smi: str, scorer) -> dict:
+    """Phases 30-34; → {kernel: {phase: launches}} (K1 and K2 are counted
+    from zero just before each path and read just after)."""
+    launches = {"warp_affine": {}, "fused_bottleneck": {}}
+
+    def count(name, fn):
+        warp_affine.launches = fused_bottleneck.launches = 0
+        fn()
+        launches["warp_affine"][name] = warp_affine.launches
+        launches["fused_bottleneck"][name] = fused_bottleneck.launches
+        if warp_affine.launches or fused_bottleneck.launches:
+            raise AssertionError(f"{name}: K1/K2 launched {warp_affine.launches}/"
+                                 f"{fused_bottleneck.launches} times")
+
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        onnx = write_onnx(yunet_shaped_graph(SEED), os.path.join(tmp_dir, "yunet_shaped.onnx"))
+        k1o, k2o, scene = phase_overlay(scorer, smi, tmp_dir, onnx)
+        launches["warp_affine"]["overlay"], launches["fused_bottleneck"]["overlay"] = k1o, k2o
+        count("viz", lambda: phase_viz(dev, smi, tmp_dir, onnx, scene))
+    count("tile", lambda: phase_tile(dev, smi))
+    count("multigrid", lambda: phase_multigrid(smi))
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        k1g, k2g = phase_geo_jitter(dev, smi, tmp_dir)
+    launches["warp_affine"]["geo_jitter"], launches["fused_bottleneck"]["geo_jitter"] = k1g, k2g
+    if k1g or k2g:
+        raise AssertionError(f"geo_jitter: K1/K2 launched {k1g}/{k2g} times")
+    return launches
+
+
 def timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -3418,6 +3771,11 @@ def main() -> None:
     emit({"phase": "data_file_wall", "seconds": time.perf_counter() - t0})
     for k in by_phase:
         by_phase[k].update(file_launches[k])
+    t0 = time.perf_counter()
+    slice_launches = phase_slice13(dev, smi, scorer)
+    emit({"phase": "slice13_wall", "seconds": time.perf_counter() - t0})
+    for k in by_phase:
+        by_phase[k].update(slice_launches[k])
 
     # each kernel's numbers at the shape its path launched it with: K1 at
     # the engine's N; K2 at score_dense's batch of 8 clips, per launch over

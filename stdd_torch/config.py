@@ -1,18 +1,24 @@
-"""Configuration dataclasses of the live scoring path.
+"""Configuration dataclasses.
 
-Own copies of ``stdd_tpu.config.I3DConfig``, ``DualEncoderConfig``,
-``DetectorConfig`` and ``PipelineConfig`` (same fields, same defaults), so a configuration moves between the two packages
-field for field. The port's I3D computes the plain convolutions whatever
-``s2d_stem``/``stem_t2`` say (both are exact TPU re-layouts of the same
-math); ``fused_s2`` runs s2 through K2 (``ops/bottleneck.py``);
-``temporal_only`` and ``int8_stages`` are not ported yet and are refused by
-:class:`stdd_torch.models.i3d.I3D`.
+Own copies of ``stdd_tpu.config``'s tree (same fields, same defaults), so a
+configuration moves between the two packages field for field:
+``I3DConfig``, ``DualEncoderConfig``, ``DetectorConfig``,
+``PipelineConfig``, ``TrainConfig`` :109, ``MeshConfig`` :126 and ``Config``
+:137, with dotted overrides (``apply_overrides`` :175) and YAML loading
+(``load_yaml`` :201; PyYAML is imported only there). The port's I3D
+computes the plain convolutions whatever ``s2d_stem``/``stem_t2`` say (both
+are exact TPU re-layouts of the same math); ``fused_s2`` runs s2 through K2
+(``ops/bottleneck.py``); ``temporal_only`` and ``int8_stages`` are not
+ported yet and are refused by :class:`stdd_torch.models.i3d.I3D`.
+``MeshConfig`` is kept field for field; nothing in the port reads it yet
+(multi-card training is ROADMAP §1 item 5).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+import dataclasses
+from dataclasses import dataclass, field, fields
+from typing import Any, Dict, List, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -95,3 +101,116 @@ class PipelineConfig:
     max_tracks: int = 8
     decision_min_frames: int = 128
     decision_percentile: float = 80.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training defaults shared by the I3D (AltFreezing) and dual-encoder rigs."""
+
+    base_lr: float = 1e-4
+    weight_decay: float = 1e-4
+    max_epochs: int = 30
+    warmup_epochs: float = 2.0
+    batch_size: int = 32
+    alter_freq: int = 10          # AltFreezing spatial/temporal swap period (iters)
+    optimizer: str = "adamw"
+    lr_policy: str = "cosine"
+    grad_clip: float = 1.0
+    label_smoothing: float = 0.0
+    seed: int = 42
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout. ``data`` shards the batch; ``model`` is reserved for
+    tensor-parallel extensions (the models here fit one card comfortably)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1       # -1 = all devices
+    model_parallel: int = 1
+
+
+@dataclass(frozen=True)
+class Config:
+    model: I3DConfig = field(default_factory=I3DConfig)
+    dual: DualEncoderConfig = field(default_factory=DualEncoderConfig)
+    detector: DetectorConfig = field(default_factory=DetectorConfig)
+    pipeline: PipelineConfig = field(default_factory=PipelineConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+
+
+def _coerce(value: str, target_type: Any) -> Any:
+    if target_type is bool:
+        if isinstance(value, bool):
+            return value
+        return str(value).lower() in ("1", "true", "yes", "on")
+    if target_type in (int, float, str):
+        return target_type(value)
+    # tuples / typing containers: a python literal
+    import ast
+
+    v = ast.literal_eval(value) if isinstance(value, str) else value
+    if isinstance(v, list):
+        v = tuple(v)
+    return v
+
+
+def _replace_path(cfg: Any, path: List[str], value: Any) -> Any:
+    name = path[0]
+    if not hasattr(cfg, name):
+        raise KeyError(f"unknown config key: {name!r} on {type(cfg).__name__}")
+    if len(path) == 1:
+        ftypes = {f.name: f.type for f in fields(cfg)}
+        cur = getattr(cfg, name)
+        target = type(cur) if cur is not None else ftypes[name]
+        return dataclasses.replace(cfg, **{name: _coerce(value, target)})
+    sub = _replace_path(getattr(cfg, name), path[1:], value)
+    return dataclasses.replace(cfg, **{name: sub})
+
+
+def apply_overrides(cfg: Config, overrides: List[str]) -> Config:
+    """Apply ``a.b.c=value`` dotted overrides (reference: config.py:46 update_args)."""
+    for item in overrides:
+        key, _, value = item.partition("=")
+        cfg = _replace_path(cfg, key.strip().split("."), value.strip())
+    return cfg
+
+
+def _from_dict(cls: Any, d: Dict[str, Any]) -> Any:
+    """``cls`` from a parsed YAML mapping: a sub-tree (a field whose default
+    is a config, or a mapping) recursively, a list as a tuple (its inner
+    lists as tuples), any other value as it is."""
+    kwargs = {}
+    for f in fields(cls):
+        if f.name not in d:
+            continue
+        v = d[f.name]
+        factory = f.default_factory is not dataclasses.MISSING
+        if (factory and dataclasses.is_dataclass(f.default_factory())) or isinstance(v, dict):
+            default = f.default_factory() if factory else f.default
+            kwargs[f.name] = _from_dict(type(default), v)
+        elif isinstance(v, list):
+            kwargs[f.name] = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+        else:
+            kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def load_yaml(path: str, overrides: Optional[List[str]] = None) -> Config:
+    """The tree from a YAML file, then ``overrides``. Needs PyYAML, imported
+    here only; without it, build the tree with :func:`apply_overrides`."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError("load_yaml needs PyYAML (the yaml module), which is not installed; "
+                          "build the Config with apply_overrides(Config(), ['a.b=v', ...]) "
+                          "instead") from e
+
+    with open(path) as f:
+        d = yaml.safe_load(f) or {}
+    cfg = _from_dict(Config, d)
+    if overrides:
+        cfg = apply_overrides(cfg, overrides)
+    return cfg

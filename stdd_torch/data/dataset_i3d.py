@@ -5,14 +5,15 @@ come from the preprocessing tree (``**/track_*/clip_*/images.npy``),
 overlapping clips of a track are stitched to the model's clip length, and
 training applies the pixel augmentations of the FTCN recipe
 (``setting/ftcn_tt.yaml``: color jitter, gaussian noise and blur, JPEG
-recompression, erase). Every draw comes from the dataset's
+recompression, erase), after the opt-in clip-consistent similarity jitter
+(``geo_jitter > 0``, off by default). Every draw comes from the dataset's
 ``np.random.RandomState`` in the JAX package's order, so one seed gives the
 same windows, crop starts, jitter, erase boxes and qualities in both
 packages; blur and JPEG are :mod:`stdd_torch.data.degrade`, bit-equal to
-the cv2 calls of the JAX package.
-
-``geo_jitter > 0`` (a clip-consistent ``cv2.warpAffine``, off by default)
-is not ported and is refused.
+the cv2 calls of the JAX package. The jitter's matrix is
+``ops/align.py::rotation_matrix_2d`` (bit-equal to
+``cv2.getRotationMatrix2D``) and its warp ``warp_affine_u8`` with a
+replicated border, one grey level from cv2's on fewer than 1e-4 of values.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..ops.align import rotation_matrix_2d, warp_affine_u8
 from .dataset import infer_tech_from_path, label_from_dir
 from .degrade import gaussian_blur, jpeg_recompress
 
@@ -43,14 +45,10 @@ class I3DClipDataset:
         p_gauss_noise: float = 0.1,
         p_jpeg: float = 0.3,
         p_erase: float = 0.3,
-        geo_jitter: float = 0.0,
+        geo_jitter: float = 0.0,   # clip-consistent similarity jitter; opt-in (0 off)
         seed: int = 0,
         clip_step: Optional[int] = None,  # writer stride; None = CLIP_STEP
     ):
-        if geo_jitter > 0:
-            raise ValueError(
-                f"geo_jitter={geo_jitter}: the clip-consistent similarity jitter needs "
-                "cv2.warpAffine and is not ported yet (ROADMAP §1 item 4)")
         if clip_dirs is None:
             if not root_dir:
                 raise ValueError("I3DClipDataset needs root_dir or clip_dirs")
@@ -101,17 +99,35 @@ class I3DClipDataset:
         self.T = T
         self.is_train = is_train
         self.aug = dict(color_jitter=color_jitter, p_gauss_blur=p_gauss_blur,
-                        p_gauss_noise=p_gauss_noise, p_jpeg=p_jpeg, p_erase=p_erase)
+                        p_gauss_noise=p_gauss_noise, p_jpeg=p_jpeg, p_erase=p_erase,
+                        geo_jitter=geo_jitter)
         self.rng = np.random.RandomState(seed)
 
     def __len__(self) -> int:
         return len(self.windows)
 
     def _augment(self, clip: np.ndarray) -> np.ndarray:
-        """Clip-consistent pixel augmentations: one draw of each parameter
-        serves every frame, as the temporal model requires."""
+        """Clip-consistent geometry and pixel augmentations: one draw of
+        each parameter serves every frame, as the temporal model requires."""
         rng = self.rng
         a = self.aug
+        if a["geo_jitter"] > 0 and rng.rand() < 0.8:
+            # a small similarity jitter (rotation, scale, shift): serving
+            # re-derives the alignment from its own detector and tracker, so
+            # its crop differs from the dataset's by this kind of
+            # perturbation (stdd_tpu/data/dataset_i3d.py:114-123)
+            g = a["geo_jitter"]
+            T, h, w = clip.shape[:3]
+            ang = rng.uniform(-6.0, 6.0) * g
+            sc = 1.0 + rng.uniform(-0.08, 0.08) * g
+            tx = rng.uniform(-0.04, 0.04) * g * w
+            ty = rng.uniform(-0.04, 0.04) * g * h
+            M = rotation_matrix_2d((w / 2, h / 2), ang, sc)
+            M[:, 2] += (tx, ty)
+            # one map for every frame: the frames as the channels of one image
+            planes = np.ascontiguousarray(clip.transpose(1, 2, 0, 3)).reshape(h, w, -1)
+            warped = warp_affine_u8(planes, M, (h, w), border="replicate")
+            clip = warped.reshape(h, w, T, -1).transpose(2, 0, 1, 3)
         out = clip.astype(np.float32)
         if a["color_jitter"] > 0:
             b = 1.0 + rng.uniform(-a["color_jitter"], a["color_jitter"])

@@ -55,6 +55,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from ..ops.align import resize_u8
+from ..utils.draw import to_gray
 
 _LUMA = np.array([
     16, 11, 10, 16, 24, 40, 51, 61,
@@ -298,9 +299,7 @@ def motion_blur(img: np.ndarray, k: int) -> np.ndarray:
 
 
 def grayscale(img: np.ndarray) -> np.ndarray:
-    x = img.astype(np.int32)
-    g = ((9798 * x[..., 2] + 19235 * x[..., 1] + 3735 * x[..., 0] + (1 << 14)) >> 15)
-    return np.repeat(g.astype(np.uint8)[..., None], 3, axis=-1)
+    return np.repeat(to_gray(img)[..., None], 3, axis=-1)
 
 
 def gauss_noise(img: np.ndarray, sigma: float, rng: np.random.RandomState) -> np.ndarray:

@@ -254,8 +254,9 @@ def yunet_demo_detector(det, det_size: int = 320):
 
 
 def main(argv=None):
-    from .harness import (check_decodable, check_device, collect_videos, iter_video_frames,
-                          summarize, write_csvs, yunet_detector)
+    from ..utils.misc import check_device
+    from .harness import (check_decodable, collect_videos, iter_video_frames, summarize,
+                          write_csvs, yunet_detector)
     from ..runtime.classifier import load_scorer
 
     ap = argparse.ArgumentParser(description=__doc__)

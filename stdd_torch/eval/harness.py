@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..train.metrics import average_precision, roc_auc
+from ..utils.misc import check_device
 from ..utils.video_io import read_y4m
 
 # Path-token labeling identical to the reference (demo.py:93-103)
@@ -282,16 +283,6 @@ def write_csvs(rows: List[Dict], summary: Dict, out_dir: str, threshold: float) 
             f"{summary['mean_latency_ms_clip']:.3f}",
             summary["model_size"],
         ])
-
-
-def check_device(device: str, who: str) -> torch.device:
-    """``device`` as a torch device; stops when it is the card and torch
-    sees none (only ``--device cpu`` runs on the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"{who}: --device {device}, but torch sees no CUDA device; "
-                         "pass --device cpu to run on the CPU")
-    return dev
 
 
 def yunet_detector(model_path: Optional[str], device, conf: float, top_k: int, who: str):

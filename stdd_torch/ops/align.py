@@ -22,6 +22,7 @@ and the scorer masks those slots (``runtime/classifier.py``).
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -339,6 +340,18 @@ def warp_affine_u8(img: np.ndarray, M: np.ndarray, out_hw, border: str = "consta
     sy = inv[3] * xs + (inv[4] * ys + inv[5])
     out = _bilinear_u8(img, sx, sy, border)
     return out[..., 0] if squeeze else out
+
+
+def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D(center, angle, scale)``: the float64 2×3
+    rotation by ``angle`` degrees (counter-clockwise, image y down) and
+    scaling about ``center`` (taken in float32, as cv2's ``Point2f``),
+    computed as cv2 computes it."""
+    a = angle * (math.pi / 180)                      # cv2: angle *= CV_PI/180
+    alpha, beta = math.cos(a) * scale, math.sin(a) * scale
+    cx, cy = float(np.float32(center[0])), float(np.float32(center[1]))   # a Point2f
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]], np.float64)
 
 
 def perspective_transform(src, dst) -> np.ndarray:

@@ -1,23 +1,24 @@
 """Live-call application loop (the reference's test/app_realtime.py).
 
-Port of ``stdd_tpu/runtime/app.py``, headless: the engine consumes any
-frame source of :mod:`stdd_torch.runtime.sources`, and the meeting-level
-verdict logic matches the reference:
+Port of ``stdd_tpu/runtime/app.py``: the engine consumes any frame source
+of :mod:`stdd_torch.runtime.sources`, and the meeting-level verdict logic
+matches the reference:
 
 - self-view exclusion rect in normalized coords (af_realtime.py:311)
 - interlocutor = largest non-self-view face (``pick_interlocutor_id``
   af_realtime.py:279)
 - meeting verdict: any track with ≥128 frames whose p80 running score clears
   the threshold (app_realtime.py:75 decide_meeting_fake)
+- per-track hysteresis overlay colors (0.75/0.65)
 
-The overlay (``draw_overlay``), ``--show`` and ``--out_video`` draw with cv2,
-which the port does not use; they wait in ROADMAP.md §1 item 2, and their
-flags are refused by name rather than ignored, as are webcams and video
-containers other than ``.y4m``.
+The overlay (``draw_overlay``) draws with :mod:`stdd_torch.utils.draw`,
+bit-equal to the JAX package's cv2 calls, and ``--out_video PATH.y4m``
+writes it at 30 fps. A window (``--show``), webcams and video containers
+other than ``.y4m`` stay refused by name (ROADMAP.md §1 item 2).
 
 CLI, on the card: ``python -m stdd_torch.runtime.app --source screen:TITLE
 --det_model face_detection_yunet_2023mar.onnx [--ckpt REF.pth | --jax_ckpt CKPT]``,
-or ``--source VIDEO.y4m`` to score a file.
+or ``--source VIDEO.y4m [--out_video OVERLAY.y4m]`` to score a file.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 
 from ..config import DetectorConfig, PipelineConfig
+from ..utils import draw
+from ..utils.video_io import Y4mWriter
 from .engine import StreamingEngine
 from .scoring import decide_meeting_fake
 
@@ -61,7 +64,7 @@ def pick_interlocutor(
 
 
 class RealtimeApp:
-    """Engine + running-score bookkeeping + meeting verdict."""
+    """Engine + running-score bookkeeping + meeting verdict + overlay."""
 
     def __init__(
         self,
@@ -116,21 +119,75 @@ class RealtimeApp:
         return ready, fake
 
 
-def run_loop(app: RealtimeApp, frames: Iterable[np.ndarray]) -> Tuple[bool, bool]:
+    def draw_overlay(self, frame_bgr: np.ndarray) -> np.ndarray:
+        """The frame with each live track's box (red when its hysteresis
+        says fake, else green), its id, latest score and the interlocutor's
+        ``*``, and the meeting verdict at the top left."""
+        out = frame_bgr.copy()
+        H, W = out.shape[:2]
+        inter = pick_interlocutor(self.last_boxes, H, W, self.exclude_rect)
+        for tid, box in self.last_boxes.items():
+            x1, y1, x2, y2 = np.rint(box).astype(int)
+            fake = self.engine.hysteresis.fake.get(tid, False)
+            color = (0, 0, 255) if fake else (0, 255, 0)
+            draw.rectangle(out, (x1, y1), (x2, y2), color, 2)
+            scores = self.running_scores.get(tid, [])
+            label = f"id{tid}"
+            if scores:
+                label += f" {scores[-1]:.2f}"
+            if tid == inter:
+                label += " *"
+            draw.put_text(out, label, (x1, max(12, y1 - 6)), draw.FONT_HERSHEY_SIMPLEX, 0.5,
+                          color, 1)
+        ready, fake = self.meeting_verdict()
+        verdict = "FAKE" if (ready and fake) else ("REAL" if ready else "...")
+        draw.put_text(out, f"meeting: {verdict}", (8, 22), draw.FONT_HERSHEY_SIMPLEX, 0.7,
+                      (0, 0, 255) if verdict == "FAKE" else (0, 255, 0), 2)
+        return out
+
+
+def run_loop(
+    app: RealtimeApp,
+    frames: Iterable[np.ndarray],
+    show: bool = False,
+    out_video: Optional[str] = None,
+    on_frame=None,
+) -> Tuple[bool, bool]:
     """Drive the app over a frame source; returns the final meeting verdict
-    (app_realtime.py:96 run_loop, minus the Windows window plumbing and the
-    overlay)."""
-    for frame in frames:
-        app.step(frame)
-    app.flush()
-    return app.meeting_verdict()
+    (app_realtime.py:96 run_loop, minus the Windows window plumbing). Each
+    frame is stepped, then, when anything reads it, overlaid, handed to
+    ``on_frame`` and written to ``out_video`` (a ``.y4m`` at 30 fps, as the
+    JAX writer's rate); then in-flight batches are flushed. ``show`` (a
+    window) is refused: no window API is open to the port."""
+    if show:
+        raise ValueError(f"run_loop(show=True): {_NOT_PORTED['--show']}")
+    if out_video and not out_video.lower().endswith(".y4m"):
+        raise ValueError(f"out_video {out_video!r}: {_NOT_PORTED['--out_video']}")
+    writer = None
+    try:
+        for frame in frames:
+            app.step(frame)
+            if out_video or on_frame:
+                overlay = app.draw_overlay(frame)
+                if on_frame:
+                    on_frame(overlay)
+                if out_video:
+                    if writer is None:
+                        writer = Y4mWriter(out_video, fps=30)
+                    writer.write(overlay)
+        app.flush()
+        return app.meeting_verdict()
+    finally:
+        if writer is not None:
+            writer.close()
 
 
-# flags of the JAX CLI whose parts are not ported yet: refused, never ignored
-_CV2_ITEM = "ROADMAP.md §1 item 2: the overlay, the largest-tile picker and eval/viz"
+# parts of the JAX CLI the port refuses by name, never ignores
+_CV2_ITEM = "ROADMAP.md §1 item 2"
 _NOT_PORTED = {
-    "--show": f"the overlay and its window ({_CV2_ITEM})",
-    "--out_video": f"the overlay written as video ({_CV2_ITEM})",
+    "--show": f"the overlay's window (cv2.imshow) has no window API open to the port ({_CV2_ITEM})",
+    "--out_video": ("the overlay is written as YUV4MPEG2 (.y4m) only; encoding "
+                    f".mp4/.avi/.mov/.mkv waits for an encoder ({_CV2_ITEM})"),
     "--int8": "the int8 serving knob (ROADMAP.md §1 item 9)",
 }
 
@@ -157,7 +214,8 @@ def main(argv=None):
     ap.add_argument("--max_frames", type=int, default=None)
     ap.add_argument("--show", action="store_true", help="not ported: " + _NOT_PORTED["--show"])
     ap.add_argument("--out_video", default=None,
-                    help="not ported: " + _NOT_PORTED["--out_video"])
+                    help="write the overlay to this .y4m at 30 fps (other containers: "
+                         "not ported, ROADMAP.md §1 item 2)")
     ap.add_argument("--upload_format", default="rgb", choices=["rgb", "yuv420"],
                     help="crop upload format; yuv420 halves host->device bytes")
     ap.add_argument("--int8", action="store_true", help="not ported: " + _NOT_PORTED["--int8"])
@@ -186,9 +244,11 @@ def main(argv=None):
                     help="torch device of the detector and the scorer (default: the card)")
     args = ap.parse_args(argv)
 
-    for flag, why in _NOT_PORTED.items():
+    for flag in ("--show", "--int8"):
         if getattr(args, flag[2:]):
-            raise SystemExit(f"{flag} is not ported yet: it waits for {why}")
+            raise SystemExit(f"{flag} is not ported yet: {_NOT_PORTED[flag]}")
+    if args.out_video and not args.out_video.lower().endswith(".y4m"):
+        raise SystemExit(f"--out_video {args.out_video!r}: {_NOT_PORTED['--out_video']}")
     screen = args.source == "screen" or args.source.startswith("screen:")
     if args.source.startswith("webcam"):
         raise SystemExit(f"--source {args.source!r}: webcams stay unported, as no camera API "
@@ -202,10 +262,12 @@ def main(argv=None):
     import torch
 
     from ..models.yunet import DEFAULT_MODEL, YuNet, detect_scaled
+    from ..utils.misc import check_device
     from . import sources
     from .classifier import load_scorer
     from .engine import AsyncDetector
 
+    check_device(args.device, "app")
     scorer = load_scorer(args.ckpt, args.jax_ckpt, args.clip_size, args.model_crop,
                          upload_format=args.upload_format, device=args.device)
     # the detector's float32 convolutions run without TF32 (cuDNN's default
@@ -256,7 +318,7 @@ def main(argv=None):
             else contextlib.nullcontext())
     try:
         with prof:
-            ready, fake = run_loop(app, frames)
+            ready, fake = run_loop(app, frames, out_video=args.out_video)
     finally:
         engine.close()
     if args.profile:

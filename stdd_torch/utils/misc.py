@@ -51,6 +51,16 @@ def flop_count(fn: Callable, *args) -> Optional[float]:
     return float(counter.get_total_flops())
 
 
+def check_device(device: str, who: str) -> torch.device:
+    """``device`` as a torch device; stops when it is the card and torch
+    sees none (only ``--device cpu`` runs on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"{who}: --device {device}, but torch sees no CUDA device; "
+                         "pass --device cpu to run on the CPU")
+    return dev
+
+
 def device_mem_stats(device=None) -> Dict[str, float]:
     """Device memory in MB (the reference reads
     ``torch.cuda.max_memory_allocated``, TEST2.py:321); empty without a

@@ -7,7 +7,7 @@ each frame as ``FRAME`` and planar I420 bytes (Y, then U and V at quarter
 size). :func:`read_y4m` decodes 4:2:0 to BGR uint8 with the integer
 arithmetic of ``cv2.cvtColor(COLOR_YUV2BGR_I420)`` (BT.601 video range, Q20,
 nearest-neighbour chroma), so a frame is bit-equal to that conversion of the
-same planes. :func:`write_y4m` encodes with the port's I420 encoder
+same planes. :func:`write_y4m` (and :class:`Y4mWriter`, frame by frame) encodes with the port's I420 encoder
 (``runtime/packing.py::rgb_to_i420``, bit-equal to
 ``cv2.cvtColor(COLOR_RGB2YUV_I420)``).
 
@@ -127,27 +127,50 @@ def count_y4m_frames(path: str) -> int:
     return sum(1 for _ in iter_y4m_planes(path))
 
 
+class Y4mWriter:
+    """A 4:2:0 ``.y4m`` written frame by frame (the role of
+    ``cv2.VideoWriter``): the header goes out with the first frame, whose
+    size (even) every later frame must have."""
+
+    def __init__(self, path: str, fps: int = 30):
+        self.path, self.fps, self.count = path, int(fps), 0
+        self._f = open(path, "wb")
+        self._planes: Optional[np.ndarray] = None
+        self._shape: Optional[Tuple[int, int]] = None
+
+    def write(self, frame_bgr: np.ndarray) -> None:
+        h, w = frame_bgr.shape[:2]
+        if self._planes is None:
+            if h % 2 or w % 2:
+                raise ValueError(f"{self.path}: frame size {w}x{h} is not even")
+            self._f.write(b"%s W%d H%d F%d:1 Ip A1:1 C420jpeg\n" % (MAGIC, w, h, self.fps))
+            self._planes = np.empty(h * w * 3 // 2, np.uint8)
+            self._shape = (h, w)
+        elif (h, w) != self._shape:
+            raise ValueError(f"{self.path}: frame {self.count} is {w}x{h}, "
+                             f"not {self._shape[1]}x{self._shape[0]}")
+        rgb_to_i420(np.ascontiguousarray(frame_bgr[..., ::-1]), self._planes)
+        self._f.write(b"FRAME\n")
+        self._f.write(self._planes.tobytes())
+        self.count += 1
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self) -> "Y4mWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 def write_y4m(path: str, frames_bgr: Iterable[np.ndarray], fps: int = 30) -> int:
     """Write BGR uint8 frames (all one even size) as a 4:2:0 ``.y4m``;
     returns the number of frames written."""
-    n = 0
-    with open(path, "wb") as f:
-        planes = None
+    with Y4mWriter(path, fps) as w:
         for frame in frames_bgr:
-            h, w = frame.shape[:2]
-            if planes is None:
-                if h % 2 or w % 2:
-                    raise ValueError(f"{path}: frame size {w}x{h} is not even")
-                f.write(b"%s W%d H%d F%d:1 Ip A1:1 C420jpeg\n" % (MAGIC, w, h, int(fps)))
-                planes = np.empty(h * w * 3 // 2, np.uint8)
-                shape = (h, w)
-            elif (h, w) != shape:
-                raise ValueError(f"{path}: frame {n} is {w}x{h}, not {shape[1]}x{shape[0]}")
-            rgb_to_i420(np.ascontiguousarray(frame[..., ::-1]), planes)
-            f.write(b"FRAME\n")
-            f.write(planes.tobytes())
-            n += 1
-    return n
+            w.write(frame)
+        return w.count
 
 
 # -- the reference's video and detection helpers -------------------------------

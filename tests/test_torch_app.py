@@ -3,7 +3,10 @@
 - ``in_exclude_rect`` / ``pick_interlocutor`` give the JAX answers on
   seeded boxes; ``RealtimeApp`` + ``run_loop`` over the same frames and
   weights give the JAX app's verdict and running scores (|Δp| ≤ 1e-4, the
-  scorers' tolerance in ``test_torch_scorer_engine.py``).
+  scorers' tolerance in ``test_torch_scorer_engine.py``), the same overlays
+  through ``on_frame`` and, with ``out_video``, a ``.y4m`` of them;
+  ``draw_overlay`` on a stub engine equals the JAX overlay bit for bit in
+  each verdict state.
 - ``X11Connection`` and ``iter_screen_frames`` against the mock X server of
   ``tests/test_x11_capture.py``: frames bit-equal to the JAX client's.
 - ``main`` refuses, by name, the flags whose parts are not ported, and runs
@@ -34,6 +37,7 @@ from stdd_torch.runtime.engine import StreamingEngine
 from stdd_torch.runtime.x11_capture import X11Connection, iter_screen_frames
 from stdd_torch.utils.checkpoint import save_checkpoint
 from stdd_torch.utils.onnx_writer import write_onnx, yunet_shaped_graph
+from stdd_torch.utils.video_io import write_y4m
 from stdd_torch.utils.weights import i3d_torch_to_flax
 from test_x11_capture import MockXServer
 
@@ -73,7 +77,48 @@ def test_exclude_rect_and_interlocutor_match_jax():
     assert app.pick_interlocutor({}, H, W, rect) is None
 
 
-def test_run_loop_verdict_matches_jax_app():
+class _Track:
+    def __init__(self, tid, tlbr, activated=True):
+        self.track_id, self.tlbr, self.is_activated = tid, np.asarray(tlbr, np.float32), activated
+
+
+class _StubEngine:
+    """What ``RealtimeApp.draw_overlay`` reads of an engine."""
+
+    def __init__(self, tracks, fake, scores, frames):
+        self.tracker = type("T", (), {"tracked": tracks})()
+        self.hysteresis = type("H", (), {"fake": fake})()
+        self.track_clip_scores = scores
+        self.track_frames = frames
+
+
+@pytest.mark.parametrize("state", ["pending", "real", "fake"])
+def test_draw_overlay_matches_jax(state):
+    """Two live tracks (one in the self-view corner, so the other is the
+    interlocutor ``*``), one partly off-frame, one unconfirmed and one with
+    no score yet, under each verdict: bit-equal to the JAX overlay (its cv2
+    boxes and labels)."""
+    rng = np.random.RandomState(7)
+    frame = rng.randint(0, 256, (180, 320, 3)).astype(np.uint8)
+    tracks = [_Track(3, (40.4, 30.6, 150.5, 160.2)), _Track(5, (250.0, 140.0, 300.0, 175.0)),
+              _Track(8, (-12.0, -20.0, 30.0, 25.0)), _Track(9, (100, 100, 140, 140), False),
+              _Track(11, (180.7, 20.2, 230.1, 60.9))]
+    level = {"pending": 0.9, "real": 0.1, "fake": 0.9}[state]
+    scores = {3: [0.2, level, level], 5: [0.4, 0.61], 8: [level] * 3, 9: [0.5]}
+    frames = {3: 40 if state == "pending" else 200, 5: 200, 8: 150, 9: 10, 11: 3}
+    fake = {3: True, 5: False, 8: state == "fake"}
+    out = []
+    for mod in (app, jax_app):
+        a = mod.RealtimeApp(_StubEngine(tracks, fake, scores, frames), threshold=0.5,
+                            decision_min_frames=128 if state != "pending" else 500)
+        before = frame.copy()
+        out.append(a.draw_overlay(frame))
+        np.testing.assert_array_equal(frame, before)             # the input is not drawn on
+    np.testing.assert_array_equal(out[0], out[1])
+    assert (out[0] != frame).any()
+
+
+def test_run_loop_verdict_matches_jax_app(tmp_path):
     variables = port_i3d_variables(I3DConfig(**CFG), seed=0)
     ts = ClipScorer.from_flax_variables(variables, cfg=I3DConfig(**CFG), dtype=torch.float32,
                                         device="cpu")
@@ -86,13 +131,28 @@ def test_run_loop_verdict_matches_jax_app():
             ("jax", JaxStreamingEngine, JaxPipelineConfig, js, jax_app)):
         eng = eng_cls(scorer, fake_detector(2), cfg=pipe_cls(**PIPE), **kw)
         a = mod.RealtimeApp(eng, threshold=0.0, decision_min_frames=10)
+        overlays = []
+        # the port also writes the overlay as .y4m; the JAX writer's .mp4 is not compared
+        video = str(tmp_path / "overlay.y4m") if name == "torch" else None
         try:
-            verdict = mod.run_loop(a, sources.iter_synthetic(16, hw=(240, 320), seed=0))
+            verdict = mod.run_loop(a, sources.iter_synthetic(16, hw=(240, 320), seed=0),
+                                   out_video=video, on_frame=overlays.append)
         finally:
             eng.close()
         out[name] = (verdict, {t: list(s) for t, s in a.running_scores.items()},
-                     a.frames_seen, a.last_boxes)
-    (v, scores, n, boxes), (jv, jscores, jn, jboxes) = out["torch"], out["jax"]
+                     a.frames_seen, a.last_boxes, overlays)
+    (v, scores, n, boxes, ov), (jv, jscores, jn, jboxes, jov) = out["torch"], out["jax"]
+    assert len(ov) == len(jov) == 16
+    for g, w in zip(ov, jov):                    # boxes, ids, scores and verdicts drawn alike
+        np.testing.assert_array_equal(g, w)
+    ref = str(tmp_path / "want.y4m")
+    write_y4m(ref, ov, fps=30)                   # the file is the in-memory overlays' round trip
+    with open(str(tmp_path / "overlay.y4m"), "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()
+    with pytest.raises(ValueError, match="window"):
+        app.run_loop(None, [], show=True)
+    with pytest.raises(ValueError, match="item 2"):
+        app.run_loop(None, [], out_video=str(tmp_path / "o.mp4"))
     assert v == jv == (True, True)      # threshold 0: any scored track flags
     assert n == jn == 16
     assert sorted(scores) == sorted(jscores) and len(scores) == 2

@@ -349,3 +349,96 @@ def test_from_torch_checkpoint_on_card(cuda, tmp_path):
     valid = np.array([True, True])
     got, want = gpu.score(crops, boxes, lm5, valid), cpu.score(crops, boxes, lm5, valid)
     assert np.all((got > 0) & (got < 1)) and np.abs(got - want).max() <= 1e-4
+
+
+# -- the overlay, the annotator and multigrid (the drawing is host numpy) -------
+
+def test_app_writes_the_overlay_on_the_card(cuda, tmp_path):
+    """``run_loop(..., out_video=O.y4m, on_frame=...)`` with the scorer on
+    the card (device rings, K1): every frame written, the file the
+    in-memory overlays' ``.y4m`` round trip, the boxes drawn."""
+    from stdd_torch.runtime.app import RealtimeApp, run_loop
+    from stdd_torch.utils.video_io import read_y4m, write_y4m
+
+    scene = Scene((240, 320), n_faces=1, seed=0, face_px=96)
+    frames = [scene.frame(i) for i in range(20)]
+    scorer = ClipScorer.random_init(CFG, seed=0, device=cuda)
+    eng = StreamingEngine(scorer, scene.oracle(PIPE.detect_every), cfg=PIPE, crop_buffer=128,
+                          q_lap_hard=0.0, q_weighting=False)
+    overlays, path = [], str(tmp_path / "o.y4m")
+    before = warp_affine.launches
+    try:
+        app = RealtimeApp(eng, threshold=0.0, decision_min_frames=8)
+        run_loop(app, iter(frames), out_video=path, on_frame=overlays.append)
+    finally:
+        eng.close()
+    assert eng.device_resident and warp_affine.launches > before
+    assert len(overlays) == 20 and any((o != f).any() for o, f in zip(overlays, frames))
+    ref = str(tmp_path / "want.y4m")
+    write_y4m(ref, overlays)
+    got, want = list(read_y4m(path)), list(read_y4m(ref))
+    assert len(got) == len(want) == 20
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+def test_viz_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The annotator's detector and landmarker on the card against the CPU
+    (TF32 off): the same rows (≤ 1e-3 px, ≤ 1e-5 in score), the same
+    tracks, landmarks within ``chip_smoke.LANDMARK_TOLS``' 1e-4 of the crop
+    (≤ 0.05 px on these boxes), and the same drawn frames but for the
+    landmarks' integer truncation."""
+    from stdd_torch.config import DetectorConfig
+    from stdd_torch.eval.viz import make_annotator
+    from stdd_torch.models.facemesh import DenseLandmarker
+    from stdd_torch.models.yunet import YuNet, detect_scaled
+    from stdd_torch.track.byte_tracker import ByteTracker
+    from stdd_torch.utils.onnx_writer import write_onnx, yunet_shaped_graph
+
+    det_model = write_onnx(yunet_shaped_graph(0), str(tmp_path / "y.onnx"))
+    scene = Scene((240, 320), n_faces=2, seed=1, face_px=80)
+    frames = [scene.frame(i) for i in range(4)]
+    out, rows, pts = {}, {}, {}
+    for name, dev in (("gpu", cuda), ("cpu", torch.device("cpu"))):
+        det = YuNet(det_model, DetectorConfig(conf_threshold=0.6), device=dev)
+        lm = DenseLandmarker.pretrained(device=dev)
+        rows[name] = [detect_scaled(det, f, 64) for f in frames]
+        tracker = ByteTracker(track_thresh=0.5, match_thresh=0.8, track_buffer=30,
+                              split_low_scores=False)
+        ann = make_annotator(lambda f: detect_scaled(det, f, 64), tracker)
+        out[name] = [ann(f) for f in frames]
+        pts[name] = [lm(frames[0][:, :, ::-1], (40, 30, 140, 150))]
+    for g, c in zip(rows["gpu"], rows["cpu"]):
+        assert g.shape == c.shape and g.size > 0
+        assert np.abs(g[:, :14] - c[:, :14]).max() <= 1e-3
+        assert np.abs(g[:, 14] - c[:, 14]).max() <= 1e-5
+    assert np.abs(pts["gpu"][0] - pts["cpu"][0]).max() <= 0.05
+    for g, c in zip(out["gpu"], out["cpu"]):
+        np.testing.assert_array_equal(g, c)
+
+
+def test_multigrid_shape_switch_on_the_card(cuda):
+    """Two long-cycle shapes of a small I3D in bf16 on the card: the step
+    runs at each, the loss stays finite, the state carries across."""
+    from stdd_torch.train.engine_i3d import I3DTrainArgs
+    from stdd_torch.train.measure_multigrid import Run, make_batch
+    from stdd_torch.train.multigrid import MultigridConfig, MultigridSchedule
+
+    mg = MultigridConfig(default_b=2, default_t=8, default_s=32, solver_steps=(0, 2, 3),
+                         solver_max_epoch=4, epoch_factor=1.0)
+    sched = MultigridSchedule(mg)
+    run = Run(I3DConfig(num_frames=8, crop_size=32), torch.bfloat16,
+              I3DTrainArgs(base_lr=0.02, max_epoch=4, steps_per_epoch=2), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    shapes, losses, prev = [], [], None
+    for epoch in range(2):
+        shape, changed = sched.update(epoch, prev)
+        assert changed
+        prev = shape
+        bf, T, S = shape
+        for _ in range(2):
+            clips, y = make_batch(gen, bf * mg.default_b, T, S, cuda)
+            run.state, m = run.step_fn(run.state, clips, y, 0)
+            losses.append(float(m["loss"]))
+        shapes.append(shape)
+    assert shapes[0] != shapes[1] and run.state.step == 4
+    assert np.isfinite(losses).all()

@@ -96,9 +96,31 @@ def test_each_augmentation_forced_on_matches_jax(tree, aug):
     assert np.array_equal(sj[1], sp[1]) and sj[2:] == sp[2:]     # the same draws, in order
 
 
-def test_geo_jitter_is_refused_by_name(tree):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        port_ds.I3DClipDataset(root_dir=tree, geo_jitter=0.5)
+@pytest.mark.parametrize("g,others", [(1.0, "off"), (0.5, "erase"), (1.0, "all")])
+def test_geo_jitter_matches_jax(tree, g, others):
+    """The clip-consistent similarity jitter: the same draws in JAX's order
+    (the generators equal after every item), and clips within
+    ``warp_affine_u8``'s bound of cv2's warp (one grey level on fewer than
+    1e-4 of values). With every augmentation on, a one-level warp
+    difference can move the colour jitter's clip mean and JPEG's blocks, so
+    there only the draws and the clips' shapes are compared."""
+    off = dict(color_jitter=0.0, p_gauss_blur=0.0, p_gauss_noise=0.0, p_jpeg=0.0, p_erase=0.0)
+    on = dict(color_jitter=0.4, p_gauss_blur=1.0, p_gauss_noise=1.0, p_jpeg=1.0, p_erase=1.0)
+    kw = {"off": off, "erase": dict(off, p_erase=1.0), "all": on}[others]
+    j, p = both(tree, T=16, is_train=True, seed=21, geo_jitter=g, **kw)
+    n_diff = n_val = 0
+    for i in range(len(j)):
+        a, b = j[i]["clip"], p[i]["clip"]
+        sj, sp = j.rng.get_state(), p.rng.get_state()
+        assert np.array_equal(sj[1], sp[1]) and sj[2:] == sp[2:], i
+        assert a.shape == b.shape and b.dtype == np.uint8
+        d = np.abs(a.astype(int) - b)
+        if others != "all":
+            assert d.max() <= 1, (i, d.max())
+            n_diff += int((d > 0).sum())
+            n_val += d.size
+    if others != "all":
+        assert n_diff < 1e-4 * n_val, (n_diff, n_val)
 
 
 def natural_image(h, w, seed):

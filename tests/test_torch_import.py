@@ -1,6 +1,7 @@
 """The port stands alone: ``stdd_torch`` and ``chip_smoke.py`` import no
 JAX, no flax or optax, nothing of ``stdd_tpu``, and none of cv2, msgpack or
-scikit-learn (the machine with the card has none of them)."""
+scikit-learn (the machine with the card has none of them); importing them
+loads neither PIL nor PyYAML."""
 
 import ast
 import os
@@ -18,9 +19,11 @@ SOURCES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "stdd_torch").rglob("
 
 
 def test_every_module_imports_without_jax_cv2_or_stdd_tpu():
+    # PIL and PyYAML too, while importing: ``config.load_yaml`` imports yaml
+    # inside the call
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
-        FORBIDDEN = {FORBIDDEN!r}
+        FORBIDDEN = {FORBIDDEN + ("PIL", "yaml")!r}
 
         class Block:
             def find_spec(self, name, path=None, target=None):

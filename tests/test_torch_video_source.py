@@ -7,8 +7,10 @@ only) to the port's reader, so the frames each yields must be equal: the
 same count and pixels for ``loop`` and ``max_frames``. A file with no frame
 raises in both, with and without ``loop``. ``main`` of the app takes a
 ``.y4m`` through its normal entry point (a run on the CPU, and the argument
-check alone) and refuses other containers and webcams naming ROADMAP.md §1
-item 2.
+check alone) and refuses other containers, webcams and a window naming
+ROADMAP.md §1 item 2; ``--out_video PATH.y4m`` writes the overlay: the file
+is byte-equal to the JAX overlay (cv2's drawing on the same frames)
+written through the port's ``.y4m`` encoder.
 """
 
 import numpy as np
@@ -21,7 +23,7 @@ from stdd_torch.eval.scene import Scene
 from stdd_torch.runtime import app, classifier, sources
 from stdd_torch.utils.checkpoint import save_checkpoint
 from stdd_torch.utils.onnx_writer import write_onnx, yunet_shaped_graph
-from stdd_torch.utils.video_io import write_y4m
+from stdd_torch.utils.video_io import read_y4m, write_y4m
 from stdd_torch.utils.weights import i3d_torch_to_flax
 
 from torch_port_helpers import install_y4m_capture
@@ -87,9 +89,9 @@ def test_main_accepts_y4m_and_screen_sources(monkeypatch, source):
 @pytest.mark.parametrize("argv,word", [
     (["--source", "call.mp4"], "decoder"), (["--source", "call.avi"], "decoder"),
     (["--source", "webcam"], "webcams"), (["--source", "webcam:1"], "webcams"),
-    (["--source", "clip.y4m", "--show"], "overlay"),
-    (["--source", "clip.y4m", "--out_video", "o.y4m"], "overlay"),
-], ids=["mp4", "avi", "webcam", "webcam_1", "show", "out_video"])
+    (["--source", "clip.y4m", "--show"], "window"),
+    (["--source", "clip.y4m", "--out_video", "o.avi"], "encoder"),
+], ids=["mp4", "avi", "webcam", "webcam_1", "show", "out_video_avi"])
 def test_main_refusals_name_item_2(argv, word):
     with pytest.raises(SystemExit, match=r"ROADMAP\.md §1 item 2") as e:
         app.main(argv + ["--device", "cpu"])
@@ -112,3 +114,32 @@ def test_main_scores_a_y4m_file_on_the_cpu(tmp_path, capsys):
               "--max_frames", "10", "--no_warmup"])
     out = capsys.readouterr().out
     assert "frames: 10" in out and "meeting verdict: ready=False" in out
+
+
+def test_main_out_video_writes_the_overlay(tmp_path, capsys):
+    """``--out_video O.y4m``: every frame overlaid, at 30 fps. The random
+    graph finds no face, so each overlay is the frame with the verdict
+    label, drawn here by cv2 as the JAX app draws it."""
+    import cv2
+
+    ts = classifier.ClipScorer.random_init(cfg=I3DConfig(num_frames=8, crop_size=64),
+                                           device="cpu")
+    ckpt = save_checkpoint(str(tmp_path), "i3d", 1, i3d_torch_to_flax(ts.model.state_dict()),
+                           metadata={"crop_size": 64, "clip_size": 8, "temporal_only": False})
+    det_model = write_onnx(yunet_shaped_graph(0), str(tmp_path / "yunet_shaped.onnx"))
+    scene = Scene((240, 320), n_faces=1, seed=1, face_px=96)
+    path, out = str(tmp_path / "scene.y4m"), str(tmp_path / "overlay.y4m")
+    write_y4m(path, (scene.frame(i) for i in range(6)))
+    app.main(["--source", path, "--device", "cpu", "--det_model", det_model,
+              "--jax_ckpt", ckpt, "--clip_size", "8", "--stride", "4", "--detect_every", "2",
+              "--no_warmup", "--out_video", out])
+    assert "frames: 6" in capsys.readouterr().out
+    want = []
+    for f in read_y4m(path):
+        f = f.copy()
+        cv2.putText(f, "meeting: ...", (8, 22), cv2.FONT_HERSHEY_SIMPLEX, 0.7, (0, 255, 0), 2)
+        want.append(f)
+    ref = str(tmp_path / "want.y4m")
+    write_y4m(ref, want, fps=30)
+    with open(out, "rb") as a, open(ref, "rb") as b:
+        assert a.read() == b.read()

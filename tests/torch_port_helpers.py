@@ -183,3 +183,53 @@ def install_y4m_capture(monkeypatch):
         return Y4mCapture(path, count)
 
     monkeypatch.setattr(cv2, "VideoCapture", capture)
+
+
+def glyph_table() -> dict:
+    """The text tables of ``stdd_torch/utils/draw.py``, rendered with cv2
+    here: for each label style and printable ASCII character, the advance
+    (``getTextSize`` of the character twice less once), the baseline rows,
+    and the coverage bitmap the character alone leaves on a black image in
+    white, with its offset from the pen; the style's height."""
+    import cv2
+
+    from stdd_torch.utils.draw import TEXT_STYLES, style_key
+
+    out = {}
+    chars = [chr(c) for c in range(32, 127)]
+    for font, scale, thick in TEXT_STYLES:
+        key = style_key(font, scale, thick)
+        adv, base, box, covs = [], [], [], []
+        for ch in chars:
+            (w1, h), b = cv2.getTextSize(ch, font, scale, thick)
+            adv.append(cv2.getTextSize(ch * 2, font, scale, thick)[0][0] - w1)
+            base.append(b)
+            img = np.zeros((160, 160), np.uint8)
+            cv2.putText(img, ch, (60, 100), font, scale, 255, thick)
+            ys, xs = np.nonzero(img)
+            if len(xs):
+                y0, y1, x0, x1 = ys.min(), ys.max() + 1, xs.min(), xs.max() + 1
+                box.append((x0 - 60, y0 - 100, y1 - y0, x1 - x0))
+                covs.append(img[y0:y1, x0:x1].reshape(-1))
+            else:
+                box.append((0, 0, 0, 0))
+                covs.append(np.zeros(0, np.uint8))
+        out[f"{key}_adv"] = np.asarray(adv, np.int16)
+        out[f"{key}_base"] = np.asarray(base, np.int16)
+        out[f"{key}_box"] = np.asarray(box, np.int16)
+        out[f"{key}_off"] = np.concatenate([[0], np.cumsum([c.size for c in covs])]).astype(np.int32)
+        out[f"{key}_cov"] = np.concatenate(covs).astype(np.uint8)
+        out[f"{key}_height"] = np.asarray(cv2.getTextSize("A", font, scale, thick)[0][1], np.int16)
+    return out
+
+
+def write_glyph_table(path: Optional[str] = None) -> str:
+    """Write :func:`glyph_table` where ``stdd_torch/utils/draw.py`` reads it
+    (``python -c "import sys; sys.path[:0] = ['tests', '.']; import
+    torch_port_helpers as h; h.write_glyph_table()"`` from the repository's
+    root)."""
+    from stdd_torch.utils.draw import GLYPHS_PATH
+
+    path = path or GLYPHS_PATH
+    np.savez_compressed(path, **glyph_table())
+    return path
