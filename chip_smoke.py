@@ -219,10 +219,29 @@ exits non-zero without its result line):
               32×224² clip tree (host seconds an item), and one
               ``run_i3d``-shaped step (bf16, batch 8) on jittered clips.
               K1 and K2 stay unlaunched in 31-34.
+35. ftcn_train — ``stdd_torch.train.run_i3d.main`` with ``--ftcn`` on the
+              train phase's synthetic tree at full width (FTCN, stop_point
+              5, 32×224², bf16, batch 8) for one epoch: a finite loss, the
+              sidecar's ``temporal_only: true``, the step's device time and
+              peak memory on a fixed batch, and a float32 step on the card
+              against the CPU's (``TRAIN_F32_TOLS``, the I3D's);
+36. ftcn_serve — a temporal-only I3D-R50 checkpoint (random weights, its
+              ``temporal_only`` sidecar) served by ``ClipScorer`` at 32×224²
+              bf16 with ``fused_s2`` on over I420 ring windows: K1 once a
+              batch, K2 never, ms a batch, float32 probs on the card
+              against the CPU (``FTCN_SERVE_TOL``), and the ``--ftcn``
+              checkpoint refused as JAX's loader refuses it;
+37. zoo     — every ``build_model`` name at its published width: one bf16
+              eval forward (ms, peak memory; the transformers under
+              autocast) and a float32 forward at a small input on the card
+              against the CPU (``ZOO_F32_TOL``); RetinaFace and SCRFD (a
+              random graph of its layout) on one rendered 720p
+              ``BenchScene`` frame, random weights (``"detections_real":
+              false``). K1 and K2 stay unlaunched in 35 and 37.
 
 The K2 phases (10) run before the scorer (4) in the script, as they did,
 the evaluation phases (21-25) before training (13), and phases 26-29, then
-30-34, last.
+30-34, then 35-37, last.
 Every measurement is printed as one JSON object per line; then the
 ``{"kernels": [...]}`` line (with each kernel's launches on every path that
 counted them), the nvidia-smi line, and last
@@ -232,6 +251,7 @@ counted them), the nvidia-smi line, and last
 from __future__ import annotations
 
 import csv
+import dataclasses
 import glob
 import json
 import logging
@@ -578,7 +598,7 @@ def randomize_bn(model, seed: int) -> None:
     for name, m in model.named_modules():
         if isinstance(m, torch.nn.BatchNorm3d):
             n = m.num_features
-            final = name.endswith("branch2.c.bn")
+            final = name.endswith(("branch2.c.bn", ".c.Conv3dBN_0.bn"))
             lo, hi = (0.1, 0.3) if final else (0.7, 1.3)
             m.weight.copy_(torch.empty(n).uniform_(lo, hi, generator=g))
             m.bias.copy_(torch.randn(n, generator=g) * 0.1)
@@ -1494,13 +1514,15 @@ def read_train_log(path: str):
     return stats, np.array(splits)
 
 
-def train_f32_card_vs_cpu(dev) -> dict:
-    """One float32 SGD step of the trainer on the card and on the CPU from
-    the same weights and batch (8×64², batch 2)."""
+def train_f32_card_vs_cpu(dev, ftcn: bool = False) -> dict:
+    """One float32 SGD step of the trainer (the I3D-R50, or the FTCN with
+    its head's dropout off) on the card and on the CPU from the same weights
+    and batch (8×64², batch 2)."""
+    from stdd_torch.models.ftcn import FTCN
     from stdd_torch.models.i3d import I3D
     from stdd_torch.train.engine_i3d import I3DTrainArgs, init_i3d_training
 
-    cfg = I3DConfig(num_frames=8, crop_size=64, dropout_rate=0.0)
+    cfg = I3DConfig(num_frames=8, crop_size=64, dropout_rate=0.0, temporal_only=ftcn)
     rng = np.random.RandomState(SEED + 8)
     x = torch.from_numpy(rng.randn(2, 8, 64, 64, 3).astype(np.float32))
     y = torch.tensor([0.0, 1.0])
@@ -1508,9 +1530,11 @@ def train_f32_card_vs_cpu(dev) -> dict:
                         alter_freq=2, steps_per_epoch=4, grad_clip=1.0)
     out = {}
     for where in ("cpu", dev):
-        model = I3D(cfg, dtype=torch.float32).to(where)
+        model = (FTCN if ftcn else I3D)(cfg, dtype=torch.float32).to(where)
         state, step, _ = init_i3d_training(model, args)      # the same seed: the same weights
         randomize_bn(model, SEED)
+        if ftcn:
+            model.head.dropout = 0.0
         state, m = step(state, x.to(where), y.to(where), SEED)
         out[str(where)] = (float(m["loss"]), float(m["grad_norm"]),
                            {k: v.detach().double().cpu() for k, v in model.state_dict().items()},
@@ -1627,19 +1651,7 @@ def phase_train(dev, smi: str, tmp_dir: str):
     mean, std = (torch.as_tensor(a, device=dev) for a in (IMAGENET_MEAN, IMAGENET_STD))
     x = (torch.from_numpy(clips).to(dev).float() - mean) / std
     y = torch.from_numpy(ys).to(dev)
-    for _ in range(2):                                          # warm-up
-        st, m = step(st, x, y, SEED)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-           for _ in range(TRAIN_TIMED_STEPS)]
-    for a, b in evs:
-        a.record()
-        st, m = step(st, x, y, SEED)
-        b.record()
-    torch.cuda.synchronize()
-    step_ms = np.array([a.elapsed_time(b) for a, b in evs])
-    peak = torch.cuda.max_memory_allocated()
+    step_ms, peak, st = timed_steps(step, st, x, y, TRAIN_TIMED_STEPS)
     # the device's busy time in three steps, from the profiler's kernel times
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2050,10 +2062,10 @@ def phase_au(dev, smi: str):
     tree, on the card against the same weights on the CPU; faces/s at batch
     4 and 16 (preprocess + forward, CUDA events)."""
     from stdd_torch.models.au_resnet import AUExtractor, preprocess_faces
-    from stdd_torch.utils.weights import conv2d_torch_to_flax
+    from stdd_torch.utils.weights import torch_to_flax
 
     cpu = AUExtractor.random_init(seed=SEED, device="cpu")
-    au = AUExtractor(conv2d_torch_to_flax(cpu.model.state_dict()), device=dev)
+    au = AUExtractor(torch_to_flax(cpu.model.state_dict()), device=dev)
     faces = np.random.RandomState(SEED).randint(0, 256, (16, 224, 224, 3), np.uint8)
     err = float(np.abs(au.activations(faces[:8]) - cpu.activations(faces[:8])).max())
     r = {"phase": "au", "card": smi, "model": "AUResNet18", "input": 224,
@@ -3071,7 +3083,7 @@ def phase_regen(dev, smi: str, tmp_dir: str):
     from stdd_torch.models.au_resnet import AUExtractor
     from stdd_torch.models.facemesh import DenseLandmarker
     from stdd_torch.utils.video_io import write_y4m
-    from stdd_torch.utils.weights import conv2d_torch_to_flax
+    from stdd_torch.utils.weights import torch_to_flax
 
     scenes, paths = {}, []
     for k, tech in enumerate(REGEN_VIDEOS):
@@ -3082,7 +3094,7 @@ def phase_regen(dev, smi: str, tmp_dir: str):
         scenes[path] = scene
         paths.append(path)
     au_cpu = AUExtractor.random_init(seed=SEED, device="cpu")
-    au = AUExtractor(conv2d_torch_to_flax(au_cpu.model.state_dict()), device=dev)
+    au = AUExtractor(torch_to_flax(au_cpu.model.state_dict()), device=dev)
     lm_card = DenseLandmarker.pretrained(device=dev)
     lm_card(scenes[paths[0]].frame(0), (100, 100, 400, 400))     # warm-up: cuDNN's choice
     au(np.zeros((REGEN_T, 256, 256, 3), np.uint8))
@@ -3681,6 +3693,294 @@ def phase_slice13(dev, smi: str, scorer) -> dict:
     return launches
 
 
+
+# -- phases 35-37: the FTCN trained, a temporal-only I3D served, the model zoo ----
+
+FTCN_ARGS = ["--ftcn", "--batch", "8", "--epochs", "1", "--alter_freq", "2",
+             "--base_lr", "0.01", "--warmup_epochs", "0.5", "--val_ratio", "0.15"]
+FTCN_TIMED_STEPS = 10
+FTCN_SERVE_BATCHES = 12
+FTCN_SERVE_TOL = 1e-4        # float32 probs, card vs CPU: convolution sums in another order
+# the zoo's float32 forward, card vs CPU (TF32 off), over max(1, max |CPU|):
+# float32 convolution and matmul sums in another order through up to 50
+# layers of random weights
+ZOO_F32_TOL = 1e-3
+ZOO_3D = dict(num_frames=32, crop_size=224)          # the published clip
+ZOO_SMALL_3D = dict(num_frames=8, crop_size=64)
+ZOO_VIT = dict(image_size=224, patch_size=16, num_frames=32)
+ZOO_SMALL_VIT = dict(image_size=64, patch_size=16, num_frames=8)
+ZOO_SCRFD_SIZE = 640
+ZOO_TIMED = 3                # bf16 forwards timed a model (CUDA events; the median is kept)
+
+
+def timed_steps(step, st, x, y, n: int):
+    """CUDA-event ms of ``n`` steps (after two warm-up steps) and the peak
+    memory; → (ms array, peak bytes, state)."""
+    for _ in range(2):
+        st, _ = step(st, x, y, SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    evs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+           for _ in range(n)]
+    for a, b in evs:
+        a.record()
+        st, _ = step(st, x, y, SEED)
+        b.record()
+    torch.cuda.synchronize()
+    return np.array([a.elapsed_time(b) for a, b in evs]), torch.cuda.max_memory_allocated(), st
+
+
+def phase_ftcn_train(dev, smi: str, tmp_dir: str) -> str:
+    """``python -m stdd_torch.train.run_i3d --ftcn`` in this process on the
+    train phase's synthetic tree at full width (FTCN, stop_point 5, 32×224²,
+    bf16, batch 8) for one epoch; the step's device time and peak memory
+    on a fixed batch; a float32 step card vs CPU (8×64², batch 2);
+    → the checkpoint."""
+    from stdd_torch.data.dataset_i3d import I3DClipDataset
+    from stdd_torch.models.ftcn import FTCN
+    from stdd_torch.models.i3d import IMAGENET_MEAN, IMAGENET_STD
+    from stdd_torch.train import run_i3d
+    from stdd_torch.train.engine_i3d import I3DTrainArgs, init_i3d_training
+
+    tree, out = os.path.join(tmp_dir, "clips"), os.path.join(tmp_dir, "ftcn_run")
+    write_clip_tree(tree, np.random.RandomState(SEED + 7))      # set-up, not timed
+    t0 = time.perf_counter()
+    state = run_i3d.main(["--data", tree, "--out", out, "--clip_size", str(TRAIN_T),
+                          "--crop_size", str(TRAIN_S), *FTCN_ARGS, "--device", str(dev)])
+    seconds = time.perf_counter() - t0
+    ckpt = os.path.join(out, "i3d_1.msgpack")
+    with open(ckpt + ".json") as f:
+        sidecar = json.load(f)
+    stats, _ = read_train_log(os.path.join(out, "log.txt"))
+    losses = [r["loss"] for r in stats if r["_type"] == "train_epoch"]
+
+    cfg = I3DConfig(num_frames=TRAIN_T, crop_size=TRAIN_S, temporal_only=True)
+    model = FTCN(cfg, dtype=torch.bfloat16).to(dev)
+    st, step, _ = init_i3d_training(model, I3DTrainArgs(
+        base_lr=0.01, max_epoch=1, warmup_epochs=0.5, warmup_start_lr=0.0025, alter_freq=2,
+        steps_per_epoch=state.step, grad_clip=1.0))
+    st = run_i3d.load_train_checkpoint(ckpt, model, st)
+    ds = I3DClipDataset(root_dir=tree, T=TRAIN_T, is_train=True, seed=SEED)
+    clips, ys = next(ds.batches(8, seed=SEED))
+    mean, std = (torch.as_tensor(a, device=dev) for a in (IMAGENET_MEAN, IMAGENET_STD))
+    x = (torch.from_numpy(clips).to(dev).float() - mean) / std
+    step_ms, peak, st = timed_steps(step, st, x, torch.from_numpy(ys).to(dev), FTCN_TIMED_STEPS)
+    del model, st, x
+    torch.cuda.empty_cache()
+    f32 = train_f32_card_vs_cpu(dev, ftcn=True)
+    r = {"phase": "ftcn_train", "card": smi, "model": "FTCN (ftcn_tt: temporal-only, stop_point 5)",
+         "clip": TRAIN_T, "crop": TRAIN_S, "batch": 8, "dtype": "bfloat16 compute, float32 weights",
+         "steps": state.step, "epoch_loss": losses, "seconds_one_epoch": seconds,
+         "sidecar": sidecar, "step_ms_median": float(np.median(step_ms)),
+         "step_ms_p90": float(np.percentile(step_ms, 90)),
+         "clips_per_s": 8 * 1000.0 / float(np.median(step_ms)),
+         "max_memory_allocated_gib": peak / 2 ** 30, "f32_card_vs_cpu": f32,
+         "tol": TRAIN_F32_TOLS}
+    emit(r)
+    if not (losses and np.isfinite(losses).all()):
+        raise AssertionError(f"ftcn_train: epoch losses {losses}")
+    if sidecar.get("temporal_only") is not True:
+        raise AssertionError(f"ftcn_train: the sidecar {sidecar} does not say temporal_only")
+    for key, tol in TRAIN_F32_TOLS.items():
+        if not f32[key] <= tol:
+            raise AssertionError(f"ftcn_train: float32 card vs CPU {key} {f32[key]} > {tol}")
+    return ckpt
+
+
+def phase_ftcn_serve(dev, smi: str, tmp_dir: str, ftcn_ckpt: str):
+    """A temporal-only I3D checkpoint (random weights, full width, the
+    trainer's ``temporal_only`` sidecar) served by ``ClipScorer`` at
+    32×224² bf16 with ``fused_s2`` on, over I420 ring windows: K1 once a
+    batch, K2 never; ms a batch; float32 probs card vs CPU; and the
+    ``--ftcn`` checkpoint refused as JAX's loader refuses it; → K1, K2
+    launches."""
+    from stdd_torch.models.i3d import I3D
+    from stdd_torch.runtime.classifier import sidecar_config
+
+    cfg = I3DConfig(temporal_only=True)
+    model = I3D(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(SEED))
+    randomize_bn(model, SEED)
+    path = save_checkpoint(tmp_dir, "temporal", 1, i3d_torch_to_flax(model.state_dict()),
+                           metadata={"crop_size": cfg.crop_size, "clip_size": cfg.num_frames,
+                                     "temporal_only": True, "epoch": 1})
+    served = dataclasses.replace(sidecar_config(path), fused_s2=True)
+    scorer = ClipScorer.from_jax_checkpoint(path, cfg=served, upload_format="yuv420", device=dev)
+    scorer32 = ClipScorer.from_jax_checkpoint(path, cfg=served, dtype=torch.float32,
+                                              upload_format="yuv420", device=dev)
+    cpu32 = ClipScorer.from_jax_checkpoint(path, cfg=served, dtype=torch.float32,
+                                           upload_format="yuv420", device="cpu")
+    rng = np.random.RandomState(SEED + 40)
+    T, S, B = cfg.num_frames, 256, 2
+    host_ws = clip_windows(rng, B, T, S)
+    ws = [torch.from_numpy(w).to(dev) for w in host_ws]
+    geo = [clip_geometry(rng, T) for _ in range(B)]
+    boxes, lm5, scale = (np.stack([g[i] for g in geo]) for i in range(3))
+    valid = np.ones((B,), bool)
+    np.asarray(scorer.score_windows(ws, boxes, lm5, scale, valid))     # warm-up
+    torch.cuda.synchronize()
+    fused_bottleneck.launches = warp_affine.launches = 0                 # the serving path
+    times = []
+    for _ in range(FTCN_SERVE_BATCHES):
+        t0 = time.perf_counter()
+        p16 = np.asarray(scorer.score_windows(ws, boxes, lm5, scale, valid))
+        times.append((time.perf_counter() - t0) * 1000)
+    k1, k2 = warp_affine.launches, fused_bottleneck.launches
+    p32 = np.asarray(scorer32.score_windows(ws, boxes, lm5, scale, valid))
+    pcpu = np.asarray(cpu32.score_windows([torch.from_numpy(w) for w in host_ws], boxes, lm5,
+                                          scale, valid))
+    fused_bottleneck.launches = warp_affine.launches = 0
+    try:
+        ClipScorer.from_jax_checkpoint(ftcn_ckpt, device=dev)
+        refused = None
+    except ValueError as e:
+        refused = str(e)[:160]
+    r = {"phase": "ftcn_serve", "card": smi, "model": "I3D-R50 temporal_only, stop_point 5",
+         "clip": T, "crop": cfg.crop_size, "batch": B, "dtype": "bfloat16", "fused_s2": True,
+         "batches": FTCN_SERVE_BATCHES, "k1_launches": k1, "k2_launches": k2,
+         "ms_per_batch_median": float(np.median(times)), "ms_per_batch_p90": float(np.percentile(times, 90)),
+         "probs_bf16": p16.tolist(), "probs_f32": p32.tolist(),
+         "f32_card_vs_cpu_dp": float(np.abs(p32 - pcpu).max()),
+         "bf16_vs_f32_dp": float(np.abs(p16 - p32).max()), "tol": FTCN_SERVE_TOL,
+         "ftcn_checkpoint_refused": refused}
+    emit(r)
+    if not (np.isfinite(p16).all() and ((p16 > 0) & (p16 < 1)).all()):
+        raise AssertionError(f"ftcn_serve: probs {p16}")
+    if k1 != FTCN_SERVE_BATCHES or k2:
+        raise AssertionError(f"ftcn_serve: K1/K2 launched {k1}/{k2} times in "
+                             f"{FTCN_SERVE_BATCHES} batches (want {FTCN_SERVE_BATCHES}/0)")
+    if not r["f32_card_vs_cpu_dp"] <= FTCN_SERVE_TOL:
+        raise AssertionError(f"ftcn_serve: float32 card vs CPU {r['f32_card_vs_cpu_dp']}")
+    if not (refused and "does not cover the model" in refused):
+        raise AssertionError(f"ftcn_serve: the --ftcn checkpoint was not refused: {refused}")
+    return k1, k2
+
+
+def zoo_inputs(name: str, small: bool, gen):
+    """(build kwargs, input) for a registry name: the 3D nets at
+    ``ZOO_3D`` (or ``ZOO_SMALL_3D``), the transformers at ``ZOO_VIT``, the
+    2D ResNet on 224² frames (64²); batch 1 (2 for the small ones)."""
+    B = 2 if small else 1
+    if name in ("videoit", "st_transformer"):
+        kw = ZOO_SMALL_VIT if small else ZOO_VIT
+        return dict(kw), torch.randn(B, kw["num_frames"], kw["image_size"], kw["image_size"], 3,
+                                     generator=gen)
+    if name == "resnet2d":
+        S = 64 if small else 224
+        return {"variant": "resnet18"}, torch.randn(B, S, S, 3, generator=gen)
+    c = ZOO_SMALL_3D if small else ZOO_3D
+    return {"cfg": I3DConfig(**c)}, torch.randn(B, c["num_frames"], c["crop_size"],
+                                                 c["crop_size"], 3, generator=gen)
+
+
+def zoo_forward(model, x, bf16: bool):
+    """One eval forward; the outputs as float32 tensors. The transformers
+    (float32 modules, as in JAX) run under autocast in bf16."""
+    with torch.inference_mode(), torch.autocast("cuda", torch.bfloat16, enabled=bf16 and
+                                                not hasattr(model, "compute_dtype")):
+        out = model(x)
+    return [t.float() for t in (out if isinstance(out, tuple) else (out,))]
+
+
+def phase_zoo(dev, smi: str, tmp_dir: str):
+    """Every registry name at its published width on the card: one bf16
+    eval forward (ms, peak memory) and a float32 forward at a small input
+    on the card against the CPU (``ZOO_F32_TOL``); RetinaFace and SCRFD
+    (random weights, ``detections_real: false``) on one rendered 720p
+    ``BenchScene`` frame."""
+    from stdd_torch.eval.bench_scene import BenchScene
+    from stdd_torch.models import MODEL_REGISTRY, build_model
+    from stdd_torch.models.retinaface import RetinaFaceDetector
+    from stdd_torch.models.scrfd import SCRFDDetector
+    from stdd_torch.utils.onnx_writer import scrfd_shaped_graph
+
+    gen = torch.Generator().manual_seed(SEED)
+    rows = []
+    for name in sorted(MODEL_REGISTRY):
+        kw, x = zoo_inputs(name, False, gen)
+        bf = {"dtype": torch.bfloat16} if name not in ("videoit", "st_transformer") else {}
+        with torch.device(dev):
+            model = build_model(name, **kw, **bf).eval()
+        x = x.to(dev)
+        zoo_forward(model, x, True)                                    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(ZOO_TIMED):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out16 = zoo_forward(model, x, True)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(p.numel() for p in model.parameters())
+        bf16_input = list(x.shape)
+        del model, x
+        kw, xs = zoo_inputs(name, True, gen)
+        with torch.device(dev):
+            m32 = build_model(name, **kw).eval()
+        cpu = build_model(name, **kw).eval()
+        cpu.load_state_dict({k: v.cpu() for k, v in m32.state_dict().items()})
+        got = zoo_forward(m32, xs.to(dev), False)
+        want = zoo_forward(cpu, xs, False)
+        err = max(float((g.cpu() - w).abs().max()) / max(1.0, float(w.abs().max()))
+                  for g, w in zip(got, want))
+        finite = all(bool(torch.isfinite(t).all()) for t in out16)
+        rows.append({"name": name, "params_m": n_params / 1e6, "bf16_input": bf16_input,
+                     "f32_input": list(xs.shape), "bf16_ms_median": float(np.median(ms)),
+                     "bf16_ms": ms, "bf16_peak_gib": peak / 2 ** 30,
+                     "out_shape": [list(t.shape) for t in out16], "bf16_finite": finite,
+                     "f32_card_vs_cpu": err})
+        del m32, cpu
+        torch.cuda.empty_cache()
+    scene = BenchScene((720, 1280), n_faces=1, seed=SEED, device=dev)
+    frame = scene.frame(0, copy=True)
+    det = RetinaFaceDetector.random_init((720, 1280), seed=SEED, device=dev)
+    det.detect(frame)                                                  # warm-up
+    t0 = time.perf_counter()
+    dets, mask = det.detect(frame)
+    rf = {"ms": (time.perf_counter() - t0) * 1000, "detections": int(mask.sum())}
+    onnx = write_onnx(scrfd_shaped_graph(SEED), os.path.join(tmp_dir, "scrfd_shaped.onnx"))
+    sd = SCRFDDetector(onnx, input_size=(ZOO_SCRFD_SIZE, ZOO_SCRFD_SIZE), device=dev)
+    small = resize_linear_u8(torch.from_numpy(frame).to(dev), ZOO_SCRFD_SIZE, ZOO_SCRFD_SIZE)
+    sd.detect(small)                                                   # warm-up
+    t0 = time.perf_counter()
+    sdets, smask = sd.detect(small)
+    sc = {"ms": (time.perf_counter() - t0) * 1000, "detections": int(smask.sum()),
+          "input": [ZOO_SCRFD_SIZE, ZOO_SCRFD_SIZE]}
+    emit({"phase": "zoo", "card": smi, "models": rows, "f32_tol": ZOO_F32_TOL,
+          "retinaface_720p": rf, "scrfd_720p": sc, "weights": "random",
+          "detections_real": False})
+    for r in rows:
+        if not (r["bf16_finite"] and r["f32_card_vs_cpu"] <= ZOO_F32_TOL):
+            raise AssertionError(f"zoo: {r}")
+    for d, m in ((dets, mask), (sdets, smask)):
+        if not np.isfinite(d[m]).all():
+            raise AssertionError("zoo: a detector gave non-finite rows")
+
+
+def phase_slice14(dev, smi: str) -> dict:
+    """Phases 35-37; → {kernel: {phase: launches}} (counted from zero just
+    before each path and read just after)."""
+    launches = {"warp_affine": {}, "fused_bottleneck": {}}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        fused_bottleneck.launches = warp_affine.launches = 0
+        ckpt = phase_ftcn_train(dev, smi, tmp_dir)
+        launches["warp_affine"]["ftcn_train"] = warp_affine.launches
+        launches["fused_bottleneck"]["ftcn_train"] = fused_bottleneck.launches
+        k1, k2 = phase_ftcn_serve(dev, smi, tmp_dir, ckpt)
+        launches["warp_affine"]["ftcn_serve"], launches["fused_bottleneck"]["ftcn_serve"] = k1, k2
+        fused_bottleneck.launches = warp_affine.launches = 0
+        phase_zoo(dev, smi, tmp_dir)
+        launches["warp_affine"]["zoo"] = warp_affine.launches
+        launches["fused_bottleneck"]["zoo"] = fused_bottleneck.launches
+    for name in ("ftcn_train", "zoo"):
+        if launches["warp_affine"][name] or launches["fused_bottleneck"][name]:
+            raise AssertionError(f"{name}: K1/K2 launched on a path that has none")
+    return launches
+
+
 def timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -3774,6 +4074,11 @@ def main() -> None:
     t0 = time.perf_counter()
     slice_launches = phase_slice13(dev, smi, scorer)
     emit({"phase": "slice13_wall", "seconds": time.perf_counter() - t0})
+    for k in by_phase:
+        by_phase[k].update(slice_launches[k])
+    t0 = time.perf_counter()
+    slice_launches = phase_slice14(dev, smi)
+    emit({"phase": "slice14_wall", "seconds": time.perf_counter() - t0})
     for k in by_phase:
         by_phase[k].update(slice_launches[k])
 

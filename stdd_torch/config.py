@@ -8,8 +8,11 @@ configuration moves between the two packages field for field:
 (``load_yaml`` :201; PyYAML is imported only there). The port's I3D
 computes the plain convolutions whatever ``s2d_stem``/``stem_t2`` say (both
 are exact TPU re-layouts of the same math); ``fused_s2`` runs s2 through K2
-(``ops/bottleneck.py``); ``temporal_only`` and ``int8_stages`` are not
-ported yet and are refused by :class:`stdd_torch.models.i3d.I3D`.
+(``ops/bottleneck.py``); ``temporal_only`` with ``stop_point`` builds the
+FTCN trunk inside the I3D (1×1×1 middle convolutions, the stages before
+``s{stop_point}``) and configures ``models/ftcn.py::FTCN``; ``int8_stages``
+is not ported yet (ROADMAP §1 item 9) and is refused by
+:class:`stdd_torch.models.i3d.I3D`.
 ``MeshConfig`` is kept field for field; nothing in the port reads it yet
 (multi-card training is ROADMAP §1 item 5).
 """

@@ -7,7 +7,7 @@ Dropout → Linear(128,12) → Sigmoid) and its inference adapter (Resize(256)
 on the shorter side → CenterCrop(224) → ImageNet normalize; activations
 thresholded at 0.5 into a binary AU dict). The modules are named after the
 flax tree (``encoder/layer1_0/conv1``, ``fc1``, ``bn``, ``fc2``), so
-``utils/weights.py::conv2d_flax_to_torch`` is a layout change;
+``utils/weights.py::flax_to_torch`` is a layout change;
 :func:`load_torchvision_state_dict` takes a LibreFace checkpoint's
 torchvision-convention keys (``conv1``, ``bn1``, ``layer{1..4}.{0,1}.*``,
 ``downsample``, ``classifier.*``).
@@ -139,12 +139,12 @@ class AUExtractor:
 
     def __init__(self, variables=None, threshold: float = 0.5, device="cuda",
                  model: Optional[AUResNet18] = None):
-        from ..utils.weights import conv2d_flax_to_torch
+        from ..utils.weights import flax_to_torch
 
         self.device = torch.device(device)
         if model is None:
             model = AUResNet18()
-            model.load_state_dict(conv2d_flax_to_torch(variables, model, "AU ResNet-18"))
+            model.load_state_dict(flax_to_torch(variables, model, "AU ResNet-18"))
         self.model = model.to(self.device).eval()
         self.threshold = threshold
 

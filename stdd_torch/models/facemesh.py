@@ -545,22 +545,22 @@ class DenseLandmarker:
     CROP = 128
 
     def __init__(self, variables=None, seed: int = 0, device="cuda"):
-        from ..utils.weights import conv2d_flax_to_torch
+        from ..utils.weights import flax_to_torch
 
         self.device = torch.device(device)
         self.net = LandmarkNet()
         if variables is None:
             flax_init_(self.net, torch.Generator().manual_seed(seed))
         else:
-            self.net.load_state_dict(conv2d_flax_to_torch(variables, self.net, "landmarker"))
+            self.net.load_state_dict(flax_to_torch(variables, self.net, "landmarker"))
         self.net.to(self.device).eval()
         self._canon = torch.from_numpy(canonical_mesh()).to(self.device)
 
     @property
     def variables(self):
-        from ..utils.weights import conv2d_torch_to_flax
+        from ..utils.weights import torch_to_flax
 
-        return conv2d_torch_to_flax(self.net.state_dict())
+        return torch_to_flax(self.net.state_dict())
 
     @torch.no_grad()
     def forward(self, imgs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -31,6 +31,11 @@ bottleneck ``resnet_helper.py:196``; head ``head_helper.py:9``).
   ``ResBlock._fused`` does; the parameters stay where the unfused block
   keeps them, so one checkpoint serves both. Eval only: in train mode the
   blocks run unfused, as in JAX.
+- ``temporal_only`` is the FTCN trunk inside the I3D: every bottleneck's
+  middle convolution becomes 1×1×1 (``spatial_1x1``,
+  ``stdd_tpu/models/i3d.py:357-389``) and the stages stop before
+  ``s{stop_point}`` (``:632-634``). JAX leaves such blocks unfused
+  (``:440-441``), so ``fused_s2`` launches K2 on none of them.
 
 Module names follow the flax parameter tree (``s1.pathway0_stem.conv`` …,
 ``head.projection``) so the weight bridge (``utils/weights.py``) is a pure
@@ -89,31 +94,34 @@ class Conv3dBN(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         w = self.conv.weight.to(dtype=x.dtype, memory_format=torch.channels_last_3d)
         x = F.conv3d(x, w, None, self.conv.stride, self.conv.padding)
-        bn = self.bn
-        if train:
-            return self._bn_train(x)
+        return batch_norm(self.bn, x, train)
+
+
+def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor, train: bool
+               ) -> torch.Tensor:
+    """flax's ``nn.BatchNorm`` over the channels of an NC… tensor ``x``.
+
+    Eval: the running statistics as a per-channel affine in ``x``'s dtype.
+    Train: batch statistics (float32 reductions, biased variance) normalize
+    ``x`` through one fused op, PyTorch's native batch-norm, which takes
+    bf16 activations with float32 parameters and differentiates in closed
+    form; then the running statistics move to ``(1-m)·old + m·batch`` with
+    ``m = bn.momentum``. The op hands back the mean and
+    ``1/sqrt(var + eps)``, from which the biased variance is recovered
+    (``nn.BatchNorm3d``'s own update would store the unbiased one)."""
+    if not train:
         inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
         shift = bn.bias - bn.running_mean * inv
-        return (x * inv.to(x.dtype).view(-1, 1, 1, 1)
-                + shift.to(x.dtype).view(-1, 1, 1, 1))
-
-    def _bn_train(self, x: torch.Tensor) -> torch.Tensor:
-        """Batch statistics (float32 reductions, biased variance) normalize
-        ``x`` through one fused op, PyTorch's native batch-norm, which takes
-        bf16 activations with float32 parameters and differentiates in
-        closed form; then the running statistics move. The op hands back
-        the mean and ``1/sqrt(var + eps)``, from which the biased variance
-        is recovered (``nn.BatchNorm3d``'s own update would store the
-        unbiased one)."""
-        bn = self.bn
-        y, mean, invstd = torch.native_batch_norm(x, bn.weight, bn.bias, None, None, True,
-                                                  0.0, bn.eps)
-        with torch.no_grad():
-            var = (invstd.double().pow(-2) - bn.eps).clamp_(min=0).float()
-            m = bn.momentum
-            bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
-            bn.running_var.copy_((1 - m) * bn.running_var + m * var)
-        return y
+        view = (-1,) + (1,) * (x.dim() - 2)
+        return x * inv.to(x.dtype).view(view) + shift.to(x.dtype).view(view)
+    y, mean, invstd = torch.native_batch_norm(x, bn.weight, bn.bias, None, None, True,
+                                              0.0, bn.eps)
+    with torch.no_grad():
+        var = (invstd.double().pow(-2) - bn.eps).clamp_(min=0).float()
+        m = bn.momentum
+        bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+        bn.running_var.copy_((1 - m) * bn.running_var + m * var)
+    return y
 
 
 def max_pool_3d(x: torch.Tensor, window, strides, padding) -> torch.Tensor:
@@ -140,17 +148,21 @@ class VideoStem(nn.Module):
 
 class Bottleneck(nn.Module):
     """Tx1x1 → 1x3x3 (spatial stride here) → 1x1x1, BN after each
-    (reference resnet_helper.py:196 BottleneckTransform)."""
+    (reference resnet_helper.py:196 BottleneckTransform). ``spatial_1x1``
+    makes the middle convolution 1x1x1, stride kept: the FTCN
+    "temporal-only" variant (reference
+    i3d_temporal_var_fix_dropout_tt_cfg.py:207)."""
 
     def __init__(self, dim_in: int, dim_out: int, dim_inner: int,
                  temp_kernel_size: int, stride: int, zero_init_final_bn: bool,
-                 bn_eps: float, bn_momentum: float = 0.1):
+                 bn_eps: float, bn_momentum: float = 0.1, spatial_1x1: bool = False):
         super().__init__()
         tk = temp_kernel_size
+        ks = 1 if spatial_1x1 else 3
         bn = dict(bn_eps=bn_eps, bn_momentum=bn_momentum)
         self.a = Conv3dBN(dim_in, dim_inner, (tk, 1, 1), (1, 1, 1), (tk // 2, 0, 0), **bn)
-        self.b = Conv3dBN(dim_inner, dim_inner, (1, 3, 3), (1, stride, stride), (0, 1, 1),
-                          **bn)
+        self.b = Conv3dBN(dim_inner, dim_inner, (1, ks, ks), (1, stride, stride),
+                          (0, ks // 2, ks // 2), **bn)
         self.c = Conv3dBN(dim_inner, dim_out, (1, 1, 1), (1, 1, 1), (0, 0, 0),
                           zero_init_scale=zero_init_final_bn, **bn)
 
@@ -163,21 +175,24 @@ class Bottleneck(nn.Module):
 class ResBlock(nn.Module):
     """Residual block with a projection shortcut when dims or stride change
     (reference resnet_helper.py:329). With ``fused_eval`` and stride 1 the
-    whole block is one K2 launch (``stdd_tpu/models/i3d.py:439-443,475``)."""
+    whole block is one K2 launch (``stdd_tpu/models/i3d.py:439-443,475``);
+    a ``spatial_1x1`` block never is (K2 computes a 3×3 middle)."""
 
     def __init__(self, dim_in: int, dim_out: int, dim_inner: int,
                  temp_kernel_size: int, stride: int, zero_init_final_bn: bool,
-                 bn_eps: float, fused_eval: bool = False, bn_momentum: float = 0.1):
+                 bn_eps: float, fused_eval: bool = False, bn_momentum: float = 0.1,
+                 spatial_1x1: bool = False):
         super().__init__()
         self.branch2 = Bottleneck(dim_in, dim_out, dim_inner, temp_kernel_size,
-                                  stride, zero_init_final_bn, bn_eps, bn_momentum)
+                                  stride, zero_init_final_bn, bn_eps, bn_momentum,
+                                  spatial_1x1)
         self.shortcut = (
             Conv3dBN(dim_in, dim_out, (1, 1, 1), (1, stride, stride), (0, 0, 0),
                      bn_eps=bn_eps, bn_momentum=bn_momentum)
             if dim_in != dim_out or stride != 1 else None
         )
         self.tk = temp_kernel_size
-        self.fused_eval = fused_eval and stride == 1
+        self.fused_eval = fused_eval and stride == 1 and not spatial_1x1
         self._fold_key = None
         self._fold = None
 
@@ -233,19 +248,64 @@ class ResStage(nn.Module):
                  temp_kernel_basis: Sequence[int], num_blocks: int,
                  num_block_temp_kernel: int, stride: int,
                  zero_init_final_bn: bool, bn_eps: float, fused_eval: bool = False,
-                 bn_momentum: float = 0.1):
+                 bn_momentum: float = 0.1, spatial_1x1: bool = False):
         super().__init__()
         tks = stage_temp_kernels(temp_kernel_basis, num_blocks, num_block_temp_kernel)
         self.num_blocks = num_blocks
         for i in range(num_blocks):
             self.add_module(f"pathway0_res{i}", ResBlock(
                 dim_in if i == 0 else dim_out, dim_out, dim_inner, tks[i],
-                stride if i == 0 else 1, zero_init_final_bn, bn_eps, fused_eval, bn_momentum))
+                stride if i == 0 else 1, zero_init_final_bn, bn_eps, fused_eval, bn_momentum,
+                spatial_1x1))
 
     def forward(self, x, bottleneck=fused_bottleneck, train: bool = False):
         for i in range(self.num_blocks):
             x = getattr(self, f"pathway0_res{i}")(x, bottleneck, train)
         return x
+
+
+def flax_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]
+                 ) -> torch.Tensor:
+    """flax's ``nn.Dropout`` in training: each element is kept with
+    probability ``1 - rate`` (the mask drawn from ``generator``, on ``x``'s
+    device) and the kept ones are scaled by ``1/(1 - rate)``."""
+    if rate <= 0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def cast_conv(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``m(x)`` for a Conv1d/2d/3d module ``m`` in ``x``'s dtype over its
+    float32 parameters, as flax's ``nn.Conv(dtype=...)`` computes."""
+    b = m.bias.to(x.dtype) if m.bias is not None else None
+    return m._conv_forward(x, m.weight.to(x.dtype), b)
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's default kernel initializer, lecun_normal: a normal truncated
+    at ±2 standard deviations, scaled to the variance 1/fan_in (a torch
+    weight's fan-in is the product of its dims after the first). Drawn on
+    the generator's host, then copied."""
+    w = torch.empty(weight.shape)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    weight.copy_(w * (math.sqrt(1.0 / math.prod(w.shape[1:])) / 0.87962566103423978))
+
+
+@torch.no_grad()
+def flax_reset_(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's defaults over every submodule: Dense and Conv kernels
+    :func:`lecun_normal_` with zero biases, norms ones and zeros."""
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.Conv3d)):
+            lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
+            m.reset_parameters()
 
 
 class I3DHead(nn.Module):
@@ -267,33 +327,29 @@ class I3DHead(nn.Module):
 
     def forward(self, feats: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """In train mode, flax's ``nn.Dropout``: each feature is kept with
-        probability ``1 - p`` (the mask drawn from ``generator``, on the
-        features' device) and the kept ones are scaled by ``1/(1 - p)``."""
-        if train and self.dropout_rate > 0:
-            if generator is None:
-                raise ValueError("train-mode dropout needs a torch.Generator")
-            keep = 1.0 - self.dropout_rate
-            mask = torch.rand(feats.shape, generator=generator, device=feats.device) < keep
-            feats = torch.where(mask, feats / keep, torch.zeros((), dtype=feats.dtype,
-                                                                device=feats.device))
+        """In train mode, :func:`flax_dropout` of the features first."""
+        if train:
+            feats = flax_dropout(feats, self.dropout_rate, generator)
         return self.projection(feats)
 
 
 class I3D(nn.Module):
-    """The full I3D-ResNet: s1 → s2 → T-maxpool → s3 → s4 → s5 → head.
+    """The full I3D-ResNet: s1 → s2 → T-maxpool → s3 → s4 → s5 → head
+    (with ``temporal_only``, the stages before ``s{stop_point}``, at least
+    s2).
 
     ``forward(x)``: ``x`` [B, T, H, W, 3] float (already normalized) →
     ``[B, num_classes]`` float32 logits; with ``return_features=True`` also
-    the pooled penultimate embedding ``[B, 2048]`` float32."""
+    the pooled penultimate embedding ``[B, C]`` float32 (2048 for the full
+    I3D-R50)."""
 
     def __init__(self, cfg: Optional[I3DConfig] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = cfg or I3DConfig()
-        if c.temporal_only or c.int8_stages:
+        if c.int8_stages:
             raise NotImplementedError(
-                "temporal_only and int8_stages are not ported yet "
-                f"(got temporal_only={c.temporal_only}, int8_stages={c.int8_stages})")
+                f"int8_stages={c.int8_stages}: the int8 path is not ported yet "
+                "(ROADMAP §1 item 9)")
         self.cfg = c
         self.compute_dtype = dtype
         d2, d3, d4, d5 = STAGE_DEPTH[c.depth]
@@ -307,13 +363,19 @@ class I3D(nn.Module):
             ("s4", w * 8, w * 16, inner * 4, c.temp_kernel[3], d4, c.num_block_temp_kernel[2], c.spatial_strides[2]),
             ("s5", w * 16, w * 32, inner * 8, c.temp_kernel[4], d5, c.num_block_temp_kernel[3], c.spatial_strides[3]),
         ]
-        for name, di, do, dinner, basis, blocks, ntemp, stride in stages:
+        # FTCN truncation: stop_point=k removes stages s_k..s5 (reference
+        # i3d_temporal_var_fix_dropout_tt_cfg.py:315-330)
+        n_stages = min(4, max(1, c.stop_point - 2)) if c.temporal_only else 4
+        self.stage_names = [name for name, *_ in stages[:n_stages]]
+        for name, di, do, dinner, basis, blocks, ntemp, stride in stages[:n_stages]:
             # fused_s2: the eval-only K2 blocks of s2 (stdd_tpu/models/i3d.py:647)
             self.add_module(name, ResStage(di, do, dinner, basis, blocks, ntemp,
                                            stride, c.zero_init_final_bn, c.bn_eps,
                                            fused_eval=name == "s2" and c.fused_s2,
-                                           bn_momentum=c.bn_momentum))
-        self.head = I3DHead(w * 32, c.num_classes, c.fc_init_std, c.dropout_rate)
+                                           bn_momentum=c.bn_momentum,
+                                           spatial_1x1=c.temporal_only))
+        self.head = I3DHead(stages[n_stages - 1][2], c.num_classes, c.fc_init_std,
+                            c.dropout_rate)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX model's initializers (MSRA conv fill, BN ones/zeros with
@@ -338,8 +400,8 @@ class I3D(nn.Module):
             # pathway0_pool: MaxPool3d [2,1,1] (video_model_builder.py:477)
             tp = c.t_pool_after_s2
             x = max_pool_3d(x, (tp, 1, 1), (tp, 1, 1), (0, 0, 0))
-        for stage in (self.s3, self.s4, self.s5):
-            x = stage(x, train=train)
+        for name in self.stage_names[1:]:
+            x = getattr(self, name)(x, train=train)
         feats = x.to(self.head.projection.weight.dtype).mean(dim=(2, 3, 4))
         logits = self.head(feats, train, generator)
         if return_features:

@@ -7,7 +7,12 @@ clip takes the K1 kernel (``ops/warp.py``): it is exact for any affine, so
 the JAX rotation envelope, its in-graph ``lax.cond`` and the host-side
 drift router have no counterpart, and ``path`` arguments are accepted and
 ignored. With ``I3DConfig(fused_s2=True)`` the s2 blocks run K2
-(``ops/bottleneck.py``). The JAX scorer's ``round_aligned_u8`` and
+(``ops/bottleneck.py``). A ``temporal_only`` config (a trainer sidecar's
+``temporal_only: true``) builds the temporal-only I3D, as
+``stdd_tpu/runtime/classifier.py:287-293`` does; K2 never runs on its
+1×1×1 blocks, K1 still warps every clip. The JAX loader builds that I3D and
+not the FTCN, so it refuses the checkpoint ``run_i3d --ftcn`` writes (it
+does not cover the model); so does this one. The JAX scorer's ``round_aligned_u8`` and
 ``score_index`` options (no caller sets them) are not ported; the score is
 the sigmoid of the first logit.
 """

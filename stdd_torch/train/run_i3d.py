@@ -1,7 +1,9 @@
 """AltFreezing I3D training CLI.
 
 Port of ``stdd_tpu/train/run_i3d.py`` (``ensure_val_floor`` :20, ``main``
-:57): trains the I3D-ResNet50 from a preprocessed clip tree with the
+:57): trains the I3D-ResNet50 (or, with ``--ftcn``, the FTCN of
+``models/ftcn.py``: ``temporal_only``, no space-to-depth stem, the sidecar's
+``temporal_only`` true) from a preprocessed clip tree with the
 alternating temporal/spatial schedule, SGD-momentum (or Adam) with warmup
 and a cosine LR, gradient clipping at a global norm of 1, optional
 precise-BN, per-epoch validation AUC, epoch checkpoints in the JAX
@@ -20,9 +22,9 @@ so a resumed run keeps protecting and pointing at the best checkpoint.
 ``STDD_TRAIN_TIMING=1`` logs each iteration's split into host data, upload
 and normalize, the step's dispatch and the wait for its result.
 
-Not ported yet, and refused by name: ``--ftcn`` (ROADMAP §1 item 8) and the
-data-parallel flags ``--mesh``, ``--distributed``, ``--coordinator``,
-``--num_processes``, ``--process_id`` (item 5).
+Not ported yet, and refused by name: the data-parallel flags ``--mesh``,
+``--distributed``, ``--coordinator``, ``--num_processes``, ``--process_id``
+(ROADMAP §1 item 5).
 """
 
 from __future__ import annotations
@@ -38,7 +40,6 @@ import numpy as np
 import torch
 
 REFUSED = {
-    "ftcn": "the FTCN variant is not ported yet (ROADMAP §1 item 8)",
     "mesh": "data-parallel training is not ported yet (ROADMAP §1 item 5)",
     "distributed": "multi-host training is not ported yet (ROADMAP §1 item 5)",
 }
@@ -94,7 +95,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--precise_bn_batches", type=int, default=0)
     ap.add_argument("--max_to_keep", type=int, default=5)
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--ftcn", action="store_true", help="the FTCN variant (not ported yet)")
+    ap.add_argument("--ftcn", action="store_true", help="use the FTCN variant")
     ap.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -127,6 +128,22 @@ def _load_best(out_dir: str, val_meter) -> None:
     val_meter.history = list(best.get("history", []))
 
 
+def bridges(model):
+    """``(to_flax, from_flax, opt_to_flax, opt_from_flax)`` for the trainer's
+    model: the I3D's own bridge, or the zoo's naming rule for the FTCN
+    (``utils/weights.py``)."""
+    from ..models.ftcn import FTCN
+    from ..utils import weights as w
+
+    if not isinstance(model, FTCN):
+        return (w.i3d_torch_to_flax, w.i3d_flax_to_torch, w.i3d_opt_state_to_flax,
+                w.i3d_opt_state_from_flax)
+    return (w.torch_to_flax, lambda v, m=None: w.flax_to_torch(v, m, "FTCN"),
+            lambda s: w.opt_state_to_flax(s, lambda t: w.torch_to_flax(t)["params"]),
+            lambda tree, like: w.opt_state_from_flax(
+                tree, like, lambda t: w.flax_to_torch({"params": t})))
+
+
 def load_train_checkpoint(path: str, model, state, log=None):
     """Load a trainer checkpoint of either package into ``model`` (params
     and BN statistics, in place) and return ``state`` with its optimizer
@@ -134,22 +151,22 @@ def load_train_checkpoint(path: str, model, state, log=None):
     ``opt_state`` (an older layout) keeps the fresh optimizer state, with a
     warning: the momentum restarts from zero."""
     from ..utils.checkpoint import load_checkpoint, tolerant_merge
-    from ..utils.weights import i3d_flax_to_torch, i3d_opt_state_from_flax, i3d_torch_to_flax
 
+    to_flax, from_flax, _, opt_from_flax = bridges(model)
     raw = load_checkpoint(path)
-    merged, report = tolerant_merge(i3d_torch_to_flax(model.state_dict()),
+    merged, report = tolerant_merge(to_flax(model.state_dict()),
                                     {k: raw[k] for k in ("params", "batch_stats") if k in raw})
     if report["missing"] or report["shape_mismatch"]:
         raise ValueError(f"{path} does not cover the model: missing={report['missing'][:5]} "
                          f"shape_mismatch={report['shape_mismatch'][:5]}")
     with torch.no_grad():
-        for k, v in i3d_flax_to_torch(merged, model).items():
+        for k, v in from_flax(merged, model).items():
             dst = state.params.get(k, state.batch_stats.get(k))
             if dst is not None:
                 dst.copy_(v)
     opt_state = state.opt_state
     if "opt_state" in raw:
-        opt_state = i3d_opt_state_from_flax(raw["opt_state"], state.opt_state)
+        opt_state = opt_from_flax(raw["opt_state"], state.opt_state)
     elif log is not None:
         log.warning("checkpoint has no optimizer state; momentum restarts from zero")
     return state.__class__(state.params, state.batch_stats, opt_state, state.step)
@@ -165,11 +182,11 @@ def main(argv=None):
     from ..config import I3DConfig
     from ..data.dataset_i3d import I3DClipDataset
     from ..data.splits import make_split
+    from ..models.ftcn import FTCN
     from ..models.i3d import I3D, IMAGENET_MEAN, IMAGENET_STD
     from ..utils.checkpoint import find_last, save_checkpoint
     from ..utils.logging import get_logger, set_logger_dir
     from ..utils.meters import TrainMeter, ValMeter
-    from ..utils.weights import i3d_opt_state_to_flax, i3d_torch_to_flax
     from .engine_i3d import I3DTrainArgs, init_i3d_training, precise_bn_update
     from .metrics import metrics_from_logits
 
@@ -185,8 +202,13 @@ def main(argv=None):
     val_ds = I3DClipDataset(clip_dirs=split["val"], T=args.clip_size) if split["val"] else None
     log.info(f"train windows={len(train_ds)} val={len(val_ds) if val_ds else 0} on {device}")
 
-    cfg = I3DConfig(num_frames=args.clip_size, crop_size=args.crop_size)
-    model = I3D(cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
+    # the JAX trainer's s2d stem is the plain convolution here; --ftcn trains
+    # the FTCN (stdd_tpu/train/run_i3d.py:151-155)
+    cfg = I3DConfig(num_frames=args.clip_size, crop_size=args.crop_size,
+                    temporal_only=args.ftcn)
+    model_cls = FTCN if args.ftcn else I3D
+    model = model_cls(cfg=cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
+    to_flax, _, opt_to_flax, _ = bridges(model)
     steps_per_epoch = max(1, len(train_ds) // args.batch)
     targs = I3DTrainArgs(
         base_lr=args.base_lr, max_epoch=args.epochs, warmup_epochs=args.warmup_epochs,
@@ -250,11 +272,11 @@ def main(argv=None):
             if logits:
                 vm = metrics_from_logits(np.concatenate(logits), np.concatenate(ys_all))
                 val_meter.update(vm["roc_auc"], epoch)
-        tree = i3d_torch_to_flax(model.state_dict())
-        tree["opt_state"] = i3d_opt_state_to_flax(state.opt_state)
+        tree = to_flax(model.state_dict())
+        tree["opt_state"] = opt_to_flax(state.opt_state)
         save_checkpoint(args.out, "i3d", epoch + 1, tree, max_to_keep=args.max_to_keep,
                         metadata={"crop_size": args.crop_size, "clip_size": args.clip_size,
-                                  "temporal_only": False, "epoch": epoch + 1},
+                                  "temporal_only": bool(args.ftcn), "epoch": epoch + 1},
                         protect=(f"i3d_{val_meter.best_epoch + 1}.msgpack"
                                  if val_meter.best_epoch >= 0 else None))
         if val_meter.best_epoch >= 0:

@@ -1,4 +1,5 @@
-"""ONNX writer for the subset ``onnx_reader`` decodes, and a YuNet-shaped graph.
+"""ONNX writer for the subset ``onnx_reader`` decodes, and YuNet- and
+SCRFD-shaped graphs.
 
 ``encode_onnx(graph)`` serialises an :class:`OnnxGraph` (nodes, attributes,
 initializers, graph inputs and outputs) as ONNX ``ModelProto`` bytes with
@@ -22,8 +23,9 @@ to NHWC, reshaped to ``[1, HW, C]``, with ``Sigmoid`` on cls and obj, as the
 exported model ends. BatchNorm is folded into the convolutions, as an
 export folds it. The weights are random from ``seed``; the head biases are
 set so that tens of anchors clear YuNet's 0.6 score on the frames the tests
-and ``chip_smoke.py`` feed it. Numpy only: it runs where neither JAX nor
-the onnx package exists.
+and ``chip_smoke.py`` feed it. ``scrfd_shaped_graph(seed)`` does the same
+for SCRFD (:func:`scrfd_shaped_graph`). Numpy only: it runs where neither
+JAX nor the onnx package exists.
 """
 
 from __future__ import annotations
@@ -240,3 +242,72 @@ def yunet_shaped_graph(seed: int = 0, input_hw=(320, 320)) -> OnnxGraph:
             outputs.append(name)
     return OnnxGraph("yunet_shaped", b.nodes, b.inits, ["input"], outputs,
                      {"input": (1, 3) + tuple(input_hw)})
+
+
+# -- the SCRFD-shaped graph -----------------------------------------------------
+
+# scrfd_2.5g_bnkps's output names (stdd_tpu/models/scrfd.py:28 _OUT)
+SCRFD_OUTPUTS = {
+    ("score", 8): "446", ("score", 16): "466", ("score", 32): "486",
+    ("bbox", 8): "449", ("bbox", 16): "469", ("bbox", 32): "489",
+    ("kps", 8): "452", ("kps", 16): "472", ("kps", 32): "492",
+}
+SCRFD_STAGES = ((32, 48), (48, 64), (64, 80))      # strides 8, 16, 32
+SCRFD_NECK = 24
+SCRFD_HEAD = 64
+# head biases: score logits around 0 put about half the anchors over the
+# detector's 0.5; distances (in strides) of about two strides a side
+SCRFD_BIAS = {"score": 0.0, "bbox": 2.0, "kps": 0.0}
+SCRFD_GAIN = {"score": 1.0, "bbox": 0.05, "kps": 0.05}
+
+
+def scrfd_shaped_graph(seed: int = 0, input_hw=(320, 320), num_anchors: int = 2) -> OnnxGraph:
+    """A random-weight graph with the layout and output contract of
+    InsightFace's ``scrfd_2.5g_bnkps`` export: a ResNet-v1e-style deep stem
+    (three 3×3 convs, the first stride 2) and a 2×2 max-pool, three
+    basic-block stages at strides 8, 16 and 32, a PAFPN neck (1×1 laterals,
+    top-down nearest ×2 ``Resize`` and ``Add``, 3×3 smoothing, a bottom-up
+    path of stride-2 3×3 convs), and per-stride heads of two 3×3 convs then
+    ``num_anchors``·(1 score, 4 distances, 10 keypoint offsets) 1×1 convs,
+    transposed to NHWC and reshaped to ``[H·W·num_anchors, C]`` with
+    ``Sigmoid`` on the scores, under the export's tensor names
+    (:data:`SCRFD_OUTPUTS`). BatchNorm is folded, as an export folds it.
+    Input: ``(x − 127.5) / 128`` RGB, ``[1, 3, H, W]`` with H and W
+    divisible by 32; ``input_hw`` only fills the declared shape."""
+    b = _Builder(np.random.RandomState(seed))
+    x = b.node("Relu", [b.conv("input.1", 3, 16, 3, stride=2)])
+    x = b.node("Relu", [b.conv(x, 16, 16, 3)])
+    x = b.node("Relu", [b.conv(x, 16, 32, 3)])
+    x = b.maxpool(x)                                             # stride 4
+    feats = []
+    for cin, cout in SCRFD_STAGES:                               # a basic block each
+        y = b.node("Relu", [b.conv(x, cin, cout, 3, stride=2)])
+        y = b.conv(y, cout, cout, 3, gain=np.sqrt(0.5))
+        x = b.node("Relu", [b.node("Add", [y, b.conv(x, cin, cout, 1, stride=2,
+                                                      gain=np.sqrt(0.5))])])
+        feats.append(x)
+    lat = [b.conv(f, c, SCRFD_NECK, 1) for f, (_, c) in zip(feats, SCRFD_STAGES)]
+    scales = b.init("scales", np.array([1.0, 1.0, 2.0, 2.0], np.float32))
+    for i in (1, 0):                                             # top-down
+        up = b.node("Resize", [lat[i + 1], "", scales], mode="nearest")
+        lat[i] = b.node("Add", [lat[i], up])
+    outs = [b.conv(p, SCRFD_NECK, SCRFD_NECK, 3) for p in lat]
+    for i in (1, 2):                                             # bottom-up
+        down = b.conv(outs[i - 1], SCRFD_NECK, SCRFD_NECK, 3, stride=2)
+        outs[i] = b.conv(b.node("Add", [outs[i], down]), SCRFD_NECK, SCRFD_NECK, 3)
+    names = []
+    for s, p in zip((8, 16, 32), outs):
+        h = b.node("Relu", [b.conv(p, SCRFD_NECK, SCRFD_HEAD, 3)])
+        h = b.node("Relu", [b.conv(h, SCRFD_HEAD, SCRFD_HEAD, 3)])
+        for kind, c in (("score", 1), ("bbox", 4), ("kps", 10)):
+            y = b.conv(h, SCRFD_HEAD, num_anchors * c, 1, gain=SCRFD_GAIN[kind],
+                       bias=SCRFD_BIAS[kind])
+            y = b.node("Transpose", [y], perm=[0, 2, 3, 1])
+            y = b.node("Reshape", [y, b.init("shape", np.array([-1, c], np.int64))])
+            if kind == "score":
+                y = b.node("Sigmoid", [y])
+            name = SCRFD_OUTPUTS[(kind, s)]
+            b.nodes.append(OnnxNode("Identity", name, [y], [name], {}))
+            names.append(name)
+    return OnnxGraph("scrfd_shaped", b.nodes, b.inits, ["input.1"], names,
+                     {"input.1": (1, 3) + tuple(input_hw)})

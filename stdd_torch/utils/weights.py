@@ -1,5 +1,4 @@
-"""Weight bridges: flax variable trees ↔ the port's ``state_dict``s, for
-the I3D and the dual encoder.
+"""Weight bridges: flax variable trees ↔ the port's ``state_dict``s.
 
 The torch modules are named after the flax tree (``models/i3d.py``), so the
 bridge is a name map plus layout changes:
@@ -34,10 +33,14 @@ a ``[D, D]`` weight; LayerNorm ``scale`` → ``weight``; the pooling query
 ``GatedMoE`` fusion head (``models/dual_rgb.py``): the scalar temperatures
 ``t_rgb``, ``t_dual`` as they are, the gate's ``Dense`` kernels transposed.
 
-:func:`conv2d_flax_to_torch` and :func:`conv2d_torch_to_flax` carry the 2D
-conv nets of data production (the landmarker's ``LandmarkNet``, whose
-pickle both packages read and write, and the ``AUResNet18``): conv kernels
-HWIO ↔ OIHW, Dense kernels transposed, BatchNorm as above.
+:func:`flax_to_torch` and :func:`torch_to_flax` carry every other module
+named after its flax tree: the 2D conv nets of data production (the
+landmarker's ``LandmarkNet``, whose pickle both packages read and write,
+and the ``AUResNet18``) and the model zoo (``models/ftcn.py``,
+``slowfast.py``, ``unet3d.py``, ``vit.py``, ``resnet2d.py``,
+``retinaface.py``, ``landmark_net.py``): conv kernels DHWIO/HWIO ↔
+OIDHW/OIHW, Dense kernels transposed, norm scales ↔ ``weight``, BatchNorm
+statistics as above, other parameters (FTCN's ``cls_token`` …) by name.
 """
 
 from __future__ import annotations
@@ -345,18 +348,26 @@ def moe_torch_to_flax(state_dict: Mapping) -> Dict[str, dict]:
     return out
 
 
-# -- 2D conv nets: the landmarker and the AU ResNet-18 -------------------------------
+# -- the zoo and the 2D conv nets: one naming rule --------------------------------
 
-def conv2d_flax_to_torch(variables: Mapping, model: torch.nn.Module, what: str
-                         ) -> Dict[str, torch.Tensor]:
-    """A flax tree of a 2D conv net (``{"params": ..., "batch_stats": ...}``
-    of numpy arrays; the landmarker's pickle, the JAX ``AUResNet18``'s
-    variables) → the ``state_dict`` of a port module named after it
-    (``LandmarkNet``, ``AUResNet18``; ``what`` names it in errors):
-    conv ``kernel`` HWIO → ``weight`` OIHW, Dense ``kernel`` ``[in, out]`` →
-    ``weight`` ``[out, in]``, BatchNorm ``scale`` → ``weight``, its
-    ``batch_stats`` ``mean``/``var`` → ``running_mean``/``running_var``.
-    Leftover leaves and entries the model lacks or misses raise."""
+# a flax kernel's axes → a torch weight's, by rank: Conv3d DHWIO → OIDHW,
+# Conv2d HWIO → OIHW, Conv1d WIO → OIW, Dense [in, out] → [out, in]
+_KERNEL_TO_TORCH = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 3: (2, 1, 0), 2: (1, 0)}
+_KERNEL_TO_FLAX = {5: (2, 3, 4, 1, 0), 4: (2, 3, 1, 0), 3: (2, 1, 0), 2: (1, 0)}
+
+
+def flax_to_torch(variables: Mapping, model: Optional[torch.nn.Module] = None,
+                  what: str = "model") -> Dict[str, torch.Tensor]:
+    """A flax variables tree (``{"params": ..., "batch_stats": ...}`` of
+    numpy arrays) → the ``state_dict`` of a port module named after it, the
+    flax path joined by ``.`` (a flax name with a literal ``/``, as FTCN's
+    ``s2/pathway0_res0``, stays one module name): a ``kernel`` of rank 5, 4,
+    3 or 2 → ``weight`` with the axes of Conv3d, Conv2d, Conv1d or Linear;
+    ``scale`` (BatchNorm, LayerNorm) → ``weight``; ``batch_stats``
+    ``mean``/``var`` → ``running_mean``/``running_var``; any other leaf
+    (``bias``, ``cls_token``, ``pos_embedding`` …) keeps its name. With
+    ``model``, every key and shape is checked against ``model.state_dict()``
+    (``what`` names the tree in the error)."""
     out: Dict[str, torch.Tensor] = {}
     leftover = []
     for coll in variables:
@@ -366,12 +377,11 @@ def conv2d_flax_to_torch(variables: Mapping, model: torch.nn.Module, what: str
         for path, arr in _leaves(variables[coll]):
             mod, leaf = ".".join(path[:-1]), path[-1]
             a = np.array(arr, np.float32)
-            if coll == "params" and leaf == "kernel" and a.ndim == 4:
-                out[f"{mod}.weight"] = torch.from_numpy(np.ascontiguousarray(a.transpose(3, 2, 0, 1)))
-            elif coll == "params" and leaf == "kernel" and a.ndim == 2:
-                out[f"{mod}.weight"] = torch.from_numpy(np.ascontiguousarray(a.T))
-            elif coll == "params" and leaf in _BN_PARAM:
-                out[f"{mod}.{_BN_PARAM[leaf]}"] = torch.from_numpy(a)
+            if coll == "params" and leaf == "kernel" and a.ndim in _KERNEL_TO_TORCH:
+                t = torch.from_numpy(np.ascontiguousarray(a.transpose(_KERNEL_TO_TORCH[a.ndim])))
+                out[f"{mod}.weight"] = t
+            elif coll == "params" and leaf != "kernel":
+                out[f"{mod}.{_BN_PARAM.get(leaf, leaf)}".lstrip(".")] = torch.from_numpy(a)
             elif coll == "batch_stats" and leaf in _BN_STAT:
                 out[f"{mod}.{_BN_STAT[leaf]}"] = torch.from_numpy(a)
                 if leaf == "mean":
@@ -381,33 +391,32 @@ def conv2d_flax_to_torch(variables: Mapping, model: torch.nn.Module, what: str
     if leftover:
         raise ValueError(f"unconsumed flax leaves of the {what}: "
                          f"{['/'.join(p) for p in leftover[:8]]}")
-    _check_covers(out, model, f"{what} variables")
+    if model is not None:
+        _check_covers(out, model, f"{what} variables")
     return out
 
 
-def conv2d_torch_to_flax(state_dict: Mapping) -> Dict[str, dict]:
-    """The inverse of :func:`conv2d_flax_to_torch`: ``{"params": ...}``, and
-    ``"batch_stats"`` where the net has BatchNorm, of float32 numpy arrays.
-    A module with ``running_mean`` is a BatchNorm."""
-    bn = {k.rsplit(".", 1)[0] for k in state_dict if k.endswith(".running_mean")}
+def torch_to_flax(state_dict: Mapping) -> Dict[str, dict]:
+    """The inverse of :func:`flax_to_torch`: ``{"params": ...}``, and
+    ``"batch_stats"`` where there are running statistics, of float32 numpy
+    arrays. A ``weight`` of rank 1 is a norm's ``scale``; of a higher rank a
+    ``kernel``. Any ``{name: tensor}`` tree over the parameters (an
+    optimizer's moments) maps too."""
     out: Dict[str, dict] = {}
     for key, t in state_dict.items():
-        mod, leaf = key.rsplit(".", 1)
-        a = t.detach().cpu().float().numpy()
+        mod, leaf = key.rsplit(".", 1) if "." in key else ("", key)
         if leaf == "num_batches_tracked":
             continue
-        coll = "params"
-        if mod in bn:
-            name = {"weight": "scale", "bias": "bias", "running_mean": "mean",
-                    "running_var": "var"}[leaf]
-            coll = "batch_stats" if leaf.startswith("running") else "params"
+        a = t.detach().cpu().float().numpy()
+        coll, name = "params", leaf
+        if leaf in ("running_mean", "running_var"):
+            coll, name = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight" and a.ndim == 1:
+            name = "scale"
         elif leaf == "weight":
-            name, a = "kernel", (a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T)
-        else:
-            name = leaf
+            name, a = "kernel", a.transpose(_KERNEL_TO_FLAX[a.ndim])
         node = out.setdefault(coll, {})
-        for m in mod.split("."):
+        for m in (mod.split(".") if mod else ()):
             node = node.setdefault(m, {})
         node[name] = np.ascontiguousarray(a)
     return out
-

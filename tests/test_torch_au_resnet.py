@@ -21,7 +21,7 @@ import torch
 
 import stdd_tpu.models.au_resnet as J
 from stdd_torch.models import au_resnet as T
-from stdd_torch.utils.weights import conv2d_flax_to_torch, conv2d_torch_to_flax
+from stdd_torch.utils.weights import flax_to_torch, torch_to_flax
 
 from test_au_resnet import _torch_oracle
 
@@ -117,13 +117,13 @@ def test_binary_dicts_agree_away_from_the_threshold(extractors):
 
 def test_bridge_round_trip_and_random_init(variables):
     model = T.AUResNet18()
-    sd = conv2d_flax_to_torch(variables, model, "AU ResNet-18")
-    back = conv2d_torch_to_flax(sd)
+    sd = flax_to_torch(variables, model, "AU ResNet-18")
+    back = torch_to_flax(sd)
     assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(variables)
     for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(variables)):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError, match="missing"):
-        conv2d_flax_to_torch({"params": {k: v for k, v in variables["params"].items() if k != "fc2"},
+        flax_to_torch({"params": {k: v for k, v in variables["params"].items() if k != "fc2"},
                           "batch_stats": variables["batch_stats"]}, model, "AU ResNet-18")
     a = T.AUExtractor.random_init(seed=4, device="cpu")
     b = T.AUExtractor.random_init(seed=4, device="cpu")

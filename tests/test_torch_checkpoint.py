@@ -256,17 +256,11 @@ def test_from_jax_checkpoint_reads_sidecar_geometry(tmp_path, variables):
                   - np.asarray(js.score(crops, boxes, lm5, valid))).max() <= P_TOL
 
 
-@pytest.mark.parametrize("how", ["width", "missing_leaf", "temporal_only_sidecar"])
+@pytest.mark.parametrize("how", ["width", "missing_leaf"])
 def test_from_jax_checkpoint_refuses(tmp_path, variables, how):
     """Another width (every shape differs) and a missing leaf raise as the
-    JAX loader does; a sidecar asking for ``temporal_only`` meets the
-    port's refusal of that option."""
-    if how == "temporal_only_sidecar":
-        path = _save_jax(tmp_path, variables, metadata={"crop_size": 64, "clip_size": 8,
-                                                       "temporal_only": True})
-        with pytest.raises(NotImplementedError):
-            ClipScorer.from_jax_checkpoint(path, dtype=torch.float32, device="cpu")
-        return
+    JAX loader does. (A ``temporal_only`` sidecar is served:
+    ``test_torch_ftcn.py``.)"""
     if how == "width":
         path = _save_jax(tmp_path, variables)
         cfg = I3DConfig(**CFG, width_per_group=32)

@@ -1,9 +1,10 @@
 """The port on an NVIDIA card: K1 and K2 against their plain versions, the
-scorer (unfused and ``fused_s2``, packed and dense) on the card against the
-same scorer on the CPU, the device-resident ring path (pushes and
-gathers on a side CUDA stream) against the host-packed path, the data
-production models, and the evaluation harness's ``run_video`` and a
-reference-format checkpoint on the card against the CPU.
+scorer (unfused and ``fused_s2``, packed and dense, temporal-only) on the
+card against the same scorer on the CPU, the device-resident ring path
+(pushes and gathers on a side CUDA stream) against the host-packed path,
+the data production models, the evaluation harness's ``run_video`` and a
+reference-format checkpoint on the card against the CPU, and the FTCN's
+forward and train step on the card against the CPU.
 
 Every test here needs a card: each is marked ``cuda`` and skips with the
 reason "no CUDA device" where there is none. The file imports no JAX, so on
@@ -280,10 +281,10 @@ def test_renderer_and_landmarker_on_card_match_cpu(cuda):
 
 def test_au_resnet_on_card_matches_cpu(cuda):
     from stdd_torch.models.au_resnet import AUExtractor
-    from stdd_torch.utils.weights import conv2d_torch_to_flax
+    from stdd_torch.utils.weights import torch_to_flax
 
     cpu = AUExtractor.random_init(seed=0, device="cpu")
-    gpu = AUExtractor(conv2d_torch_to_flax(cpu.model.state_dict()))
+    gpu = AUExtractor(torch_to_flax(cpu.model.state_dict()))
     assert gpu.device.type == "cuda"
     faces = np.random.RandomState(0).randint(0, 256, (4, 240, 200, 3), np.uint8)
     assert np.abs(gpu.activations(faces) - cpu.activations(faces)).max() <= 1e-4
@@ -442,3 +443,61 @@ def test_multigrid_shape_switch_on_the_card(cuda):
         shapes.append(shape)
     assert shapes[0] != shapes[1] and run.state.step == 4
     assert np.isfinite(losses).all()
+
+
+def test_ftcn_forward_and_step_on_the_card_match_the_cpu(cuda):
+    """The FTCN (narrow, 8×64², float32, TF32 off): eval logits on the card
+    against the CPU, then one AltFreezing step on each from the same
+    weights and batch, dropout off: the loss and BN statistics within 1e-5
+    (BN over max(1, |x|)), the gradients' norm within 1e-2 relative."""
+    from stdd_torch.models.ftcn import FTCN
+    from stdd_torch.train.engine_i3d import I3DTrainArgs, init_i3d_training
+    from stdd_torch.utils.weights import torch_to_flax
+
+    cfg = I3DConfig(depth=18, width_per_group=8, num_frames=8, crop_size=64, temporal_only=True)
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 8, 64, 64, 3).astype(np.float32))
+    y = torch.tensor([0.0, 1.0])
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = FTCN(cfg).to(dev)
+        state, step, _ = init_i3d_training(model, I3DTrainArgs(steps_per_epoch=2, max_epoch=1))
+        model.head.dropout = 0.0
+        with torch.no_grad():
+            logits = model(x.to(dev)).cpu()
+        state, m = step(state, x.to(dev), y.to(dev), 0)
+        out[dev.type] = (logits, float(m["loss"]), float(m["grad_norm"]),
+                         torch_to_flax(model.state_dict())["batch_stats"])
+    g, c = out["cuda"], out["cpu"]
+    assert (g[0] - c[0]).abs().max() <= 1e-4
+    assert abs(g[1] - c[1]) <= 1e-5 and abs(g[2] / c[2] - 1) <= 1e-2
+    for a, b in zip(_leaves(g[3]), _leaves(c[3])):
+        assert np.abs(a - b).max() <= 1e-5 * max(1.0, np.abs(b).max())
+
+
+def _leaves(tree):
+    for k in sorted(tree):
+        v = tree[k]
+        yield from (_leaves(v) if isinstance(v, dict) else [v])
+
+
+def test_temporal_only_scorer_uses_k1_and_matches_the_plain_warp(cuda):
+    """A temporal-only I3D scorer on the card: K1 launches once a batch and
+    K2 never (its blocks are 1×1×1), and the probs equal those of the same
+    scorer through K1's plain version and of the CPU scorer."""
+    cfg = I3DConfig(num_frames=8, crop_size=64, temporal_only=True, fused_s2=True)
+    gpu = ClipScorer.random_init(cfg, seed=3, dtype=torch.float32, device=cuda)
+    cpu = ClipScorer(gpu.model.state_dict(), cfg=cfg, dtype=torch.float32, device="cpu")
+    rng = np.random.RandomState(4)
+    B, T, S = 2, 8, 96
+    crops = rng.randint(0, 256, (B, T, S, S, 3), np.uint8)
+    boxes = np.tile(np.array([100, 80, 100 + S, 80 + S], np.float32), (B, T, 1))
+    lm5 = np.tile((STD_POINTS_256 * 0.3 + 10).astype(np.float32), (B, T, 1, 1))
+    valid = np.array([True, True])
+    k1, k2 = warp_affine.launches, fused_bottleneck.launches
+    got = gpu.score(crops, boxes, lm5, valid)
+    assert warp_affine.launches == k1 + 1 and fused_bottleneck.launches == k2
+    plain = gpu._score_impl(gpu._to_device(crops), gpu._to_device(boxes, torch.float32),
+                            gpu._to_device(lm5, torch.float32), gpu._to_device(valid, torch.bool),
+                            warp=warp_affine_reference).cpu().numpy()
+    np.testing.assert_array_equal(got, plain)
+    assert np.abs(got - cpu.score(crops, boxes, lm5, valid)).max() <= 1e-4

@@ -30,7 +30,7 @@ import torch
 import stdd_tpu.models.facemesh as J
 from stdd_torch.data.features import MP68_IDX
 from stdd_torch.models import facemesh as T
-from stdd_torch.utils.weights import conv2d_flax_to_torch, conv2d_torch_to_flax
+from stdd_torch.utils.weights import flax_to_torch, torch_to_flax
 
 SHA = "6ef2388d202d12e558a3decda4b989d7c67689dc28dca9f511f0ece964a7648e"
 jax_render = jax.jit(J.render_faces, static_argnames=("size",))
@@ -122,7 +122,7 @@ def test_landmarknet_with_packaged_weights_matches_jax(packaged):
     jr, jt = jax.jit(J.LandmarkNet().apply)(jax.tree_util.tree_map(jnp.asarray, packaged),
                                    jnp.asarray(imgs))
     net = T.LandmarkNet()
-    net.load_state_dict(conv2d_flax_to_torch(packaged, net, "landmarker"))
+    net.load_state_dict(flax_to_torch(packaged, net, "landmarker"))
     with torch.no_grad():
         tr, tt = net(*_t(imgs))
     np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-5)
@@ -139,17 +139,17 @@ def test_same_padding_pads_after_on_a_stride_two_even_side():
 
 def test_bridge_round_trip_and_refusals(packaged):
     net = T.LandmarkNet()
-    sd = conv2d_flax_to_torch(packaged, net, "landmarker")
-    back = conv2d_torch_to_flax(sd)
+    sd = flax_to_torch(packaged, net, "landmarker")
+    back = torch_to_flax(sd)
     assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(packaged)
     for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(packaged)):
         np.testing.assert_array_equal(a, b)
     extra = {"params": dict(packaged["params"], stray={"kernel": np.zeros((2, 2), np.float32)})}
     with pytest.raises(ValueError, match="stray"):
-        conv2d_flax_to_torch(extra, net, "landmarker")
+        flax_to_torch(extra, net, "landmarker")
     missing = {"params": {k: v for k, v in packaged["params"].items() if k != "head"}}
     with pytest.raises(ValueError, match="missing"):
-        conv2d_flax_to_torch(missing, net, "landmarker")
+        flax_to_torch(missing, net, "landmarker")
 
 
 def test_packaged_checkpoint_is_the_jax_packages_bytes():

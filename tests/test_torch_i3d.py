@@ -161,9 +161,8 @@ def test_random_init_follows_jax_initializers(variables):
 
 
 def test_unported_options_are_refused():
-    for flags in (dict(temporal_only=True), dict(int8_stages=("s3",)),
-                  dict(fused_s2=True, int8_stages=("s4", "s5"))):
-        with pytest.raises(NotImplementedError):
+    for flags in (dict(int8_stages=("s3",)), dict(fused_s2=True, int8_stages=("s4", "s5"))):
+        with pytest.raises(NotImplementedError, match="item 9"):
             I3D(dataclasses.replace(I3DConfig(**CFG), **flags))
 
 

@@ -50,7 +50,53 @@ def test_every_module_imports_without_jax_cv2_or_stdd_tpu():
     res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                          cwd=str(ROOT), env=env, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert int(res.stdout.split()[-1]) >= 83      # every module of the slices so far was walked
+    assert int(res.stdout.split()[-1]) >= 96      # every module of the slices so far was walked
+
+
+def test_registry_builds_every_model_without_jax():
+    """``build_model`` for every registered name (the zoo's builders import
+    their modules only when called) and the zoo's detectors, converters and
+    landmarker, on a host where jax, flax, cv2 and ``stdd_tpu`` cannot be
+    imported: narrow widths on the meta device, nothing computed."""
+    script = textwrap.dedent(f"""
+        import sys
+        FORBIDDEN = {FORBIDDEN!r}
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in FORBIDDEN:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        for name in FORBIDDEN:
+            sys.modules.pop(name, None)
+        sys.meta_path.insert(0, Block())
+        sys.path.insert(0, {str(ROOT)!r})
+        import torch
+        from stdd_torch.config import I3DConfig
+        from stdd_torch.models import MODEL_REGISTRY, build_model
+        from stdd_torch.models.landmark_net import MobileNetGDConv, gdconv_reference_to_flax
+        from stdd_torch.models.retinaface import RetinaFace
+        from stdd_torch.models.scrfd import SCRFDDetector
+        from stdd_torch.utils import torch_convert
+        cfg = I3DConfig(depth=18, width_per_group=8, num_frames=8, crop_size=32)
+        vit = dict(image_size=32, patch_size=8, num_frames=8)
+        with torch.device("meta"):
+            for name in sorted(MODEL_REGISTRY):
+                if name in ("videoit", "st_transformer"):
+                    build_model(name, **vit)
+                elif name == "resnet2d":
+                    build_model(name, variant="resnet18")
+                else:
+                    build_model(name, cfg)
+            RetinaFace(), MobileNetGDConv()
+        print(len(MODEL_REGISTRY))
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                         cwd=str(ROOT), env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert int(res.stdout.split()[-1]) == 13
 
 
 def test_run_dual_help_runs_without_jax():

@@ -29,7 +29,7 @@ import stdd_tpu.models.au_resnet as JAU
 import stdd_torch.data.regen as P
 from stdd_torch.models.au_resnet import AUExtractor
 from stdd_torch.utils.video_io import write_y4m
-from stdd_torch.utils.weights import conv2d_torch_to_flax
+from stdd_torch.utils.weights import torch_to_flax
 
 from torch_port_helpers import install_y4m_capture
 
@@ -66,7 +66,7 @@ def fake_landmarker(frame_rgb):
 @pytest.fixture(scope="module")
 def extractors():
     port = AUExtractor.random_init(seed=0, device="cpu")
-    variables = jax.tree_util.tree_map(jnp.asarray, conv2d_torch_to_flax(port.model.state_dict()))
+    variables = jax.tree_util.tree_map(jnp.asarray, torch_to_flax(port.model.state_dict()))
     return port, JAU.AUExtractor(variables)
 
 

@@ -139,7 +139,7 @@ def test_resume_keeps_the_best_of_best_json(run, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--ftcn"], "item 8"), (["--mesh"], "item 5"), (["--distributed"], "item 5"),
+    (["--mesh"], "item 5"), (["--distributed"], "item 5"),
     (["--coordinator", "localhost:1234"], "item 5"), (["--num_processes", "2"], "item 5"),
     (["--process_id", "0"], "item 5")])
 def test_unported_flags_are_refused_by_name(flags, item):

@@ -27,7 +27,7 @@ import stdd_tpu.train.train_landmarker as JT
 from stdd_torch.models import facemesh as TF
 from stdd_torch.train import optim
 from stdd_torch.train import train_landmarker as TT
-from stdd_torch.utils.weights import conv2d_flax_to_torch
+from stdd_torch.utils.weights import flax_to_torch
 
 LR = 3e-4
 
@@ -63,7 +63,7 @@ def test_train_step_matches_jax_in_float64():
         loss, l_param, l_lmk = float(loss), float(l_param), float(l_lmk)
 
     net = TF.LandmarkNet(width=width)
-    net.load_state_dict(conv2d_flax_to_torch(params, net, "landmarker"))
+    net.load_state_dict(flax_to_torch(params, net, "landmarker"))
     net.double()
     ttx = optim.adam(optim.cosine_decay_schedule(LR, 10, alpha=0.1))
     state = ttx.init(dict(net.named_parameters()))
