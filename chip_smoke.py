@@ -238,10 +238,30 @@ exits non-zero without its result line):
               random graph of its layout) on one rendered 720p
               ``BenchScene`` frame, random weights (``"detections_real":
               false``). K1 and K2 stay unlaunched in 35 and 37.
+38. ddp     — ``run_i3d --mesh`` on the one card (world 1 over NCCL) beside
+              the plain ``run_i3d``, one epoch each of the train phase's
+              tree at full width (I3D-R50, 32×224², bf16, batch 8): the
+              epoch losses within ``DDP_LOSS_TOL``, the mesh checkpoint
+              resumed by the plain trainer, the step's device time plain
+              and mesh in turns; then two ranks on the card over gloo carrying CUDA
+              tensors (NCCL refuses two ranks on one device): a float32
+              step at world 2 against world 1 (``DDP_WORLD_TOL``), the
+              collectives carried; and ``dryrun_multichip(2, "cuda")``, the
+              dry run's entry point, whose ranks pick gloo on the one card
+              (K1 once a rank, the same gathered probs on both); K1 and K2
+              unlaunched in training;
+39. int8    — the int8 serving knob at full width (I3D-R50, 32×224²,
+              bf16, I420): ms a batch with and without it at B = 2 and 8
+              in turns, |Δp|, K1 once a batch and 42 integer GEMMs a
+              forward; ``fused_s2`` + int8 (K2 3 a forward); float32 int8
+              probs card vs CPU (8×64², ``INT8_F32_TOL``); one s4
+              convolution's int32 accumulators bit-equal to the plain
+              version, its time beside the bf16 cuDNN convolution; the app
+              with the int8 scorer over 120 frames of a 720p scene.
 
 The K2 phases (10) run before the scorer (4) in the script, as they did,
 the evaluation phases (21-25) before training (13), and phases 26-29, then
-30-34, then 35-37, last.
+30-34, then 35-37, then 38-39, last.
 Every measurement is printed as one JSON object per line; then the
 ``{"kernels": [...]}`` line (with each kernel's launches on every path that
 counted them), the nvidia-smi line, and last
@@ -3981,6 +4001,372 @@ def phase_slice14(dev, smi: str) -> dict:
     return launches
 
 
+
+# -- phases 38-39: data parallel and int8 -----------------------------------------
+# the mesh run (world 1 over NCCL) against the plain run: the same step but
+# for the gradient's all-reduce over one rank, so their epoch losses differ
+# only by cuDNN's nondeterministic bf16 sums (2.5e-5 of max(1, |loss|) at
+# most over the sound runs on the H100, PERF.md): 1e-3 is some 40× that;
+# two ranks on one card (gloo carrying CUDA tensors) against one, float32,
+# TF32 off: TRAIN_F32_TOLS' 1e-5
+DDP_LOSS_TOL = 1e-3
+DDP_WORLD_TOL = 1e-5
+DDP_TIMED_STEPS = 10
+DDP_PAIR_CFG = dict(num_frames=4, crop_size=32, width_per_group=16)      # reduced width
+INT8_BATCHES = (2, 8)
+INT8_TIMED = 10              # scored batches timed a configuration and round
+# float32 int8 probs, card vs CPU (8×64²): a float32 sum in another order can
+# put an activation on the other side of a half and move its integer by one
+# (tests/test_torch_int8.py bounds the port against JAX's the same way)
+INT8_F32_TOL = 1e-3
+# bf16 int8 against bf16 float probs on these seeded random weights: the
+# quantization's shift, 3.7e-4 at most over the sound runs on the H100
+# (PERF.md); the probs sit within about 0.01 of 0.49, so the bound is 2e-3
+# (JAX's envelope of 0.05 in tests/test_int8.py would pass a wrong scale)
+INT8_DP_TOL = 2e-3
+INT8_APP_FRAMES = 120
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _ddp_pair(device: str) -> dict:
+    """One rank of two on the one card (gloo carrying CUDA tensors): a
+    float32 I3D step at world 2 and at world 1 from the same weights and
+    global batch; returns what it saw."""
+    import torch.distributed as dist
+
+    from stdd_torch.models.i3d import I3D
+    from stdd_torch.parallel.mesh import COLLECTIVES, DataParallel, local_rows
+    from stdd_torch.train.engine_i3d import I3DTrainArgs, init_i3d_training
+
+    dev = torch.device(device)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rng = np.random.RandomState(SEED + 70)
+    x = torch.from_numpy(rng.randn(4, 4, 32, 32, 3).astype(np.float32)).to(dev)
+    y = torch.tensor([0.0, 1.0, 1.0, 0.0], device=dev)
+    res = {}
+    for w, dp in ((1, None), (world, DataParallel(rank, world))):
+        model = I3D(I3DConfig(**DDP_PAIR_CFG)).to(dev)
+        args = I3DTrainArgs(base_lr=0.01, max_epoch=1, warmup_epochs=0.5,
+                            warmup_start_lr=0.0025, alter_freq=2, steps_per_epoch=4, grad_clip=1.0)
+        st, step, _ = init_i3d_training(model, args, dp=dp)
+        xs, ys = (x, y) if dp is None else (local_rows(x, rank, w), local_rows(y, rank, w))
+        _sync(dev)
+        t0 = time.perf_counter()
+        st, m = step(st, xs, ys, SEED)
+        _sync(dev)
+        res[w] = {"loss": float(m["loss"]), "seconds": time.perf_counter() - t0,
+                  "state": {k: v.double().cpu() for k, v in model.state_dict().items()}}
+    res["collectives_step"] = dict(COLLECTIVES)
+    res["backend"] = dist.get_backend()
+    return res
+
+
+def phase_ddp(dev, smi: str, tmp_dir: str) -> dict:
+    """``run_i3d --mesh`` on the one card (world 1 over NCCL) at full width
+    beside the plain run, one epoch each of the train phase's tree; the
+    mesh checkpoint resumed by the plain trainer; the step's device time
+    plain and mesh, in turns; then two ranks on the card over gloo (the float32 step
+    against world 1, the collectives carried) and ``dryrun_multichip``. → launches of
+    K1 and K2 in this process over the mesh and plain runs."""
+    from stdd_torch.data.dataset_i3d import I3DClipDataset
+    from stdd_torch.models.i3d import I3D, IMAGENET_MEAN, IMAGENET_STD
+    from stdd_torch.parallel import mesh
+    from stdd_torch.parallel.dryrun import dryrun_multichip
+    from stdd_torch.train import run_i3d
+    from stdd_torch.train.engine_i3d import I3DTrainArgs, init_i3d_training
+
+    tree = os.path.join(tmp_dir, "clips")
+    n_clips = write_clip_tree(tree, np.random.RandomState(SEED + 7))       # set-up
+    base = ["--data", tree, "--clip_size", str(TRAIN_T), "--crop_size", str(TRAIN_S),
+            *TRAIN_ARGS, "--device", str(dev)]
+    runs = {}
+    warp_affine.launches = fused_bottleneck.launches = 0                   # the paths start
+    for name, extra in (("plain", []), ("mesh", ["--mesh"])):
+        out = os.path.join(tmp_dir, f"ddp_{name}")
+        t0 = time.perf_counter()
+        state = run_i3d.main(base + ["--out", out, "--epochs", "1"] + extra)
+        seconds = time.perf_counter() - t0
+        stats, _ = read_train_log(os.path.join(out, "log.txt"))
+        runs[name] = {"seconds": seconds, "steps": state.step,
+                      "epoch_loss": [r["loss"] for r in stats if r["_type"] == "train_epoch"],
+                      "val_auc": [r["value"] for r in stats if r["_type"] == "val_epoch"]}
+    launches = {"warp_affine": warp_affine.launches, "fused_bottleneck": fused_bottleneck.launches}
+    mesh_out = os.path.join(tmp_dir, "ddp_mesh")
+    t0 = time.perf_counter()
+    resumed = run_i3d.main(base + ["--out", mesh_out, "--epochs", "2", "--resume"])
+    resume_s = time.perf_counter() - t0
+    stats, _ = read_train_log(os.path.join(mesh_out, "log.txt"))
+    resume_loss = [r["loss"] for r in stats if r["_type"] == "train_epoch"]
+
+    # the step's device time on a fixed batch: plain, then world 1 over NCCL
+    ds = I3DClipDataset(root_dir=tree, T=TRAIN_T, is_train=True, seed=SEED)
+    clips, ys = next(ds.batches(8, seed=SEED))
+    mean, std = (torch.as_tensor(a, device=dev) for a in (IMAGENET_MEAN, IMAGENET_STD))
+    x = (torch.from_numpy(clips).to(dev).float() - mean) / std
+    y = torch.from_numpy(ys).to(dev)
+    args = I3DTrainArgs(base_lr=0.01, max_epoch=1, warmup_epochs=0.5, warmup_start_lr=0.0025,
+                        alter_freq=2, steps_per_epoch=8, grad_clip=1.0)
+    mesh.init_distributed(f"127.0.0.1:{mesh.free_port()}", 1, 0, dev.type)
+    try:
+        trainers = {}
+        for name, dp in (("plain", None), ("mesh", mesh.DataParallel(0, 1))):
+            model = I3D(I3DConfig(num_frames=TRAIN_T, crop_size=TRAIN_S),
+                        dtype=torch.bfloat16).to(dev)
+            st, step, _ = init_i3d_training(model, args, dp=dp)
+            trainers[name] = [step, st]
+        ms, peaks = {"plain": [], "mesh": []}, {}
+        for name in ("plain", "mesh", "mesh", "plain"):                 # in turns
+            step, st = trainers[name]
+            t, peak, trainers[name][1] = timed_steps(step, st, x, y, DDP_TIMED_STEPS // 2)
+            ms[name] += list(t)
+            peaks[name] = max(peaks.get(name, 0), peak)
+        step_ms = {k: {"median": float(np.median(v)), "p90": float(np.percentile(v, 90)),
+                       "peak_gib_both_resident": peaks[k] / 2 ** 30} for k, v in ms.items()}
+        backend = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+    del x, trainers
+    torch.cuda.empty_cache()
+
+    # two ranks on the one card: NCCL refuses that, so the job picks gloo,
+    # which carries CUDA tensors; then the dry run through its entry point
+    t0 = time.perf_counter()
+    pair = mesh.spawn(_ddp_pair, 2, (dev.type,), device=dev.type)
+    pair_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, dev.type)
+    dry_s = time.perf_counter() - t0
+
+    def state_err(a, b):
+        return max(float((a[k] - b[k]).abs().max()) / max(1.0, float(b[k].abs().max()))
+                   for k in b if b[k].is_floating_point())
+
+    world_err = max(max(abs(p[2]["loss"] - p[1]["loss"]) / max(1.0, abs(p[1]["loss"])),
+                        state_err(p[2]["state"], p[1]["state"])) for p in pair)
+    ranks_apart = state_err(pair[0][2]["state"], pair[1][2]["state"])
+    loss_rel = abs(runs["mesh"]["epoch_loss"][0] - runs["plain"]["epoch_loss"][0]) / max(
+        1.0, abs(runs["plain"]["epoch_loss"][0]))
+    r = {"phase": "ddp", "card": smi, "model": "I3D-R50", "clip": TRAIN_T, "crop": TRAIN_S,
+         "batch": 8, "dtype": "bfloat16 compute, float32 weights", "clips": n_clips,
+         "mesh_backend": backend, "mesh_world": 1, "runs": runs,
+         "mesh_vs_plain_epoch_loss_rel": loss_rel,
+         "resumed_by_plain": {"seconds": resume_s, "steps": resumed.step,
+                              "epoch_loss": resume_loss},
+         "step_ms": step_ms,
+         "mesh_over_plain_step": step_ms["mesh"]["median"] / step_ms["plain"]["median"],
+         "pair": {"backend": [p["backend"] for p in pair], "world": 2, "cfg": DDP_PAIR_CFG,
+                  "global_batch": 4, "dtype": "float32, TF32 off",
+                  "seconds_with_spawn": pair_s,
+                  "world2_vs_world1": world_err, "ranks_apart": ranks_apart,
+                  "step_s": {w: [p[w]["seconds"] for p in pair] for w in (1, 2)},
+                  "collectives_step": pair[0]["collectives_step"]},
+         "dryrun": {"ranks": 2, "seconds_with_spawn": dry_s,
+                    "per_rank": [{"i3d_loss": d["i3d_loss"], "dual_loss": d["dual_loss"],
+                                  "probs": d["probs"].tolist(), "launches": d["launches"]}
+                                 for d in dry]},
+         "tol": {"mesh_vs_plain_epoch_loss_rel": DDP_LOSS_TOL, "world2_vs_world1": DDP_WORLD_TOL},
+         "k1_launches": launches["warp_affine"], "k2_launches": launches["fused_bottleneck"]}
+    emit(r)
+    if not (runs["mesh"]["steps"] == runs["plain"]["steps"] > 0
+            and np.isfinite(runs["mesh"]["epoch_loss"]).all()):
+        raise AssertionError(f"ddp: runs {runs}")
+    if not loss_rel <= DDP_LOSS_TOL:
+        raise AssertionError(f"ddp: mesh epoch loss {loss_rel} from the plain run's")
+    if not (resumed.step == 2 * runs["mesh"]["steps"] and len(resume_loss) == 2
+            and np.isfinite(resume_loss).all()):
+        raise AssertionError(f"ddp: the plain trainer did not resume the mesh checkpoint "
+                             f"(steps {resumed.step}, losses {resume_loss})")
+    if backend != "nccl":
+        raise AssertionError(f"ddp: the mesh ran over {backend}, not NCCL")
+    if not (world_err <= DDP_WORLD_TOL and ranks_apart == 0.0
+            and [p["backend"] for p in pair] == ["gloo", "gloo"]):
+        raise AssertionError(f"ddp: world 2 vs 1 {world_err}, ranks apart {ranks_apart}")
+    for d in dry:
+        if not (np.isfinite([d["i3d_loss"], d["dual_loss"]]).all()
+                and np.isfinite(d["probs"]).all()
+                and d["launches"] == {"warp_affine": 1, "fused_bottleneck": 0}):
+            raise AssertionError(f"ddp: dry run {d}")
+    if not np.array_equal(dry[0]["probs"], dry[1]["probs"]):
+        raise AssertionError("ddp: the dry run's ranks gathered different probs")
+    if launches["warp_affine"] or launches["fused_bottleneck"]:
+        raise AssertionError("ddp: K1/K2 launched in training")
+    return launches
+
+
+def int8_scorers(dev, cfg, int8: bool, seed: int = SEED):
+    """The full-width I420 scorer over seeded random weights (BN randomized),
+    bf16, with or without the int8 knob."""
+    base = ClipScorer.random_init(cfg, seed=seed, device="cpu", dtype=torch.float32)
+    randomize_bn(base.model, seed)
+    return ClipScorer(base.model.state_dict(), cfg=cfg, upload_format="yuv420", device=dev,
+                      int8=int8)
+
+
+def phase_int8(dev, smi: str) -> dict:
+    """The int8 serving knob at full width (I3D-R50, 32×224², bf16, I420):
+    ms a batch with and without it at B = 2 and 8 (in turns), |Δp|, K1 once
+    a batch and the integer GEMMs of s3-s5 (42 a forward); with ``fused_s2``
+    K2's 3 launches a forward; float32 int8 card vs CPU (8×64²); one s4
+    convolution's int32 accumulators bit-equal to the plain version, its
+    int8 product beside the bf16 cuDNN convolution; the app over a 720p
+    scene with the int8 scorer. → {kernel: {path: launches}}."""
+    from stdd_torch.eval.bench_scene import BenchScene
+    from stdd_torch.models import i3d
+
+    cfg = I3DConfig()
+    T, S = cfg.num_frames, 256
+    fl, q8 = int8_scorers(dev, cfg, False), int8_scorers(dev, cfg, True)
+    if q8.cfg.int8_stages != ("s3", "s4", "s5"):
+        raise AssertionError(f"int8: stages {q8.cfg.int8_stages}")
+    rng = np.random.RandomState(SEED + 80)
+    launches = {"warp_affine": {}, "fused_bottleneck": {}}
+    per_b = {}
+    for B in INT8_BATCHES:
+        ws = [torch.from_numpy(w).to(dev) for w in clip_windows(rng, B, T, S)]
+        geo = [clip_geometry(rng, T) for _ in range(B)]
+        boxes, lm5, scale = (np.stack([g[i] for g in geo]) for i in range(3))
+        valid = np.ones((B,), bool)
+
+        def run(s):
+            return np.asarray(s.score_windows(ws, boxes, lm5, scale, valid))
+
+        probs = {k: run(s) for k, s in (("float", fl), ("int8", q8))}      # warm-up
+        ms = {"float": [], "int8": []}
+        counts = {"float": np.zeros(3, int), "int8": np.zeros(3, int)}   # K1, K2, int8 GEMMs
+        for order in (("float", "int8"), ("int8", "float")):
+            for k in order:
+                s = fl if k == "float" else q8
+                torch.cuda.synchronize()
+                warp_affine.launches = fused_bottleneck.launches = 0
+                n8 = i3d.int8_conv_acc.launches
+                for _ in range(INT8_TIMED):
+                    t0 = time.perf_counter()
+                    run(s)
+                    ms[k].append((time.perf_counter() - t0) * 1000)
+                counts[k] += (warp_affine.launches, fused_bottleneck.launches,
+                              i3d.int8_conv_acc.launches - n8)
+        counts = {k: [int(n) for n in v] for k, v in counts.items()}
+        launches["warp_affine"][f"int8_b{B}"] = counts["int8"][0]
+        launches["fused_bottleneck"][f"int8_b{B}"] = counts["int8"][1]
+        per_b[B] = {"ms_per_batch_median": {k: float(np.median(v)) for k, v in ms.items()},
+                    "ms_per_batch_p90": {k: float(np.percentile(v, 90)) for k, v in ms.items()},
+                    "int8_over_float": float(np.median(ms["int8"]) / np.median(ms["float"])),
+                    "dp_int8_vs_float": float(np.abs(probs["int8"] - probs["float"]).max()),
+                    "probs_int8": probs["int8"].tolist(),
+                    "k1_launches_int8": counts["int8"][0],
+                    "int8_gemms_per_batch": counts["int8"][2] / (2 * INT8_TIMED),
+                    "batches_int8": 2 * INT8_TIMED}
+        del ws
+
+    # fused_s2 + int8: K2 on s2, int8 on s3-s5
+    fz = int8_scorers(dev, dataclasses.replace(cfg, fused_s2=True), True)
+    B = 8
+    ws = [torch.from_numpy(w).to(dev) for w in clip_windows(rng, B, T, S)]
+    geo = [clip_geometry(rng, T) for _ in range(B)]
+    boxes, lm5, scale = (np.stack([g[i] for g in geo]) for i in range(3))
+    valid = np.ones((B,), bool)
+    pu = np.asarray(q8.score_windows(ws, boxes, lm5, scale, valid))
+    np.asarray(fz.score_windows(ws, boxes, lm5, scale, valid))              # warm-up
+    torch.cuda.synchronize()
+    warp_affine.launches = fused_bottleneck.launches = 0
+    t0 = time.perf_counter()
+    pf = np.asarray(fz.score_windows(ws, boxes, lm5, scale, valid))
+    fused_ms = (time.perf_counter() - t0) * 1000
+    launches["warp_affine"]["int8_fused"] = warp_affine.launches
+    launches["fused_bottleneck"]["int8_fused"] = fused_bottleneck.launches
+    del fz, ws
+
+    # float32 int8 probs, card vs CPU, at 8×64²
+    small = I3DConfig(num_frames=8, crop_size=64)
+    sd = ClipScorer.random_init(small, seed=SEED, device="cpu").model.state_dict()
+    c = np.random.RandomState(SEED + 81)
+    crops = c.randint(0, 255, (2, 8, 96, 96, 3)).astype(np.uint8)
+    sboxes = np.tile(np.array([5, 5, 90, 90], np.float32), (2, 8, 1))
+    slm5 = np.tile((STD_POINTS_256 * 0.3 + 10).astype(np.float32), (2, 8, 1, 1))
+    p32 = {str(w): ClipScorer(sd, cfg=small, dtype=torch.float32, device=w, int8=True).score(
+        crops, sboxes, slm5, np.ones(2, bool)) for w in ("cpu", dev)}
+    f32_dp = float(np.abs(p32[str(dev)] - p32["cpu"]).max())
+
+    # one s4 convolution (1×3×3, 256 → 256, B = 8, T = 8, 14²): the integers
+    # on the card against the plain version, and the int8 product's time
+    # beside the bf16 cuDNN convolution of the same shapes
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    xq = torch.randint(-127, 128, (8, 256, 8, 14, 14), generator=g, device=dev,
+                       dtype=torch.int8).contiguous(memory_format=torch.channels_last_3d)
+    wq = torch.randint(-127, 128, (256, 256, 1, 3, 3), generator=g, device=dev, dtype=torch.int8)
+    acc = i3d.int8_conv_acc(xq, wq, (1, 1, 1), (0, 1, 1))
+    ref = i3d.int8_conv_acc_reference(xq, wq, (1, 1, 1), (0, 1, 1))
+    acc_equal = bool(torch.equal(acc, ref))
+    xf = torch.randn((8, 256, 8, 14, 14), generator=g, device=dev).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d)
+    wf = torch.randn((256, 256, 1, 3, 3), generator=g, device=dev).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last_3d)
+    conv_ms = {"int8_acc": event_ms(lambda: i3d.int8_conv_acc(xq, wq, (1, 1, 1), (0, 1, 1)), 20),
+               "int8_conv_with_quantize": event_ms(
+                   lambda: i3d.int8_conv(xf, wf, (1, 1, 1), (0, 1, 1)), 20),
+               "bf16_cudnn": event_ms(lambda: F.conv3d(xf, wf, None, 1, (0, 1, 1)), 20)}
+    del xq, wq, acc, ref, xf, wf
+
+    # the app with the int8 scorer over a 720p scene of one face
+    scene = BenchScene(APP_FILE_HW, n_faces=1, seed=SEED + 61, device=str(dev))
+    frames = [scene.frame(i) for i in range(INT8_APP_FRAMES)]                 # set-up
+    app_res = run_app_over(q8, frames, oracle_rows(scene, INT8_APP_FRAMES))
+    launches["warp_affine"]["int8_app"] = app_res["k1_launches"]
+    launches["fused_bottleneck"]["int8_app"] = app_res["k2_launches"]
+    del frames
+
+    r = {"phase": "int8", "card": smi, "model": "I3D-R50", "clip": T, "crop": cfg.crop_size,
+         "dtype": "bfloat16 compute; int8 s3-s5", "upload": "yuv420",
+         "by_batch": {str(b): v for b, v in per_b.items()},
+         "fused_s2_int8": {"B": 8, "ms_one_batch": fused_ms, "k1_launches":
+                           launches["warp_affine"]["int8_fused"],
+                           "k2_launches": launches["fused_bottleneck"]["int8_fused"],
+                           "dp_vs_unfused_int8": float(np.abs(pf - pu).max())},
+         "f32_card_vs_cpu_dp": f32_dp, "f32_small": "8×64², B = 2",
+         "s4_conv_acc_bit_equal": acc_equal, "s4_conv_ms": conv_ms,
+         "app": {k: v for k, v in app_res.items() if k != "scores"},
+         "tol": {"f32_card_vs_cpu_dp": INT8_F32_TOL, "dp_int8_vs_float": INT8_DP_TOL}}
+    emit(r)
+    for B, v in per_b.items():
+        if not (v["k1_launches_int8"] == v["batches_int8"] and v["int8_gemms_per_batch"] == 42):
+            raise AssertionError(f"int8 B={B}: K1 {v['k1_launches_int8']} for "
+                                 f"{v['batches_int8']} batches, {v['int8_gemms_per_batch']} "
+                                 "integer GEMMs a batch")
+        p = np.array(v["probs_int8"])
+        if not (np.isfinite(p).all() and v["dp_int8_vs_float"] <= INT8_DP_TOL):
+            raise AssertionError(f"int8 B={B}: probs {p}, |Δp| {v['dp_int8_vs_float']}")
+    if not (launches["fused_bottleneck"]["int8_fused"] == 3
+            and launches["warp_affine"]["int8_fused"] == 1):
+        raise AssertionError(f"int8: fused_s2 launches {launches}")
+    if not f32_dp <= INT8_F32_TOL:
+        raise AssertionError(f"int8: float32 card vs CPU |Δp| {f32_dp}")
+    if not acc_equal:
+        raise AssertionError("int8: the s4 accumulators differ from the plain version")
+    if not (app_res["frames_seen"] == INT8_APP_FRAMES and app_res["k1_launches"] > 0
+            and app_res["k1_launches"] == app_res["batches_dispatched"]):
+        raise AssertionError(f"int8: app {app_res}")
+    return launches
+
+
+def phase_slice15(dev, smi: str) -> dict:
+    """Phases 38-39 (ddp, int8); → {kernel: {phase: launches}} (counted from zero just
+    before each path and read just after)."""
+    launches = {"warp_affine": {}, "fused_bottleneck": {}}
+    with tempfile.TemporaryDirectory() as tmp_dir:
+        ddp = phase_ddp(dev, smi, tmp_dir)
+    for k in launches:
+        launches[k]["ddp"] = ddp[k]
+    q8 = phase_int8(dev, smi)
+    for k in launches:
+        launches[k].update(q8[k])
+    return launches
+
+
 def timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
@@ -4079,6 +4465,11 @@ def main() -> None:
     t0 = time.perf_counter()
     slice_launches = phase_slice14(dev, smi)
     emit({"phase": "slice14_wall", "seconds": time.perf_counter() - t0})
+    for k in by_phase:
+        by_phase[k].update(slice_launches[k])
+    t0 = time.perf_counter()
+    slice_launches = phase_slice15(dev, smi)
+    emit({"phase": "slice15_wall", "seconds": time.perf_counter() - t0})
     for k in by_phase:
         by_phase[k].update(slice_launches[k])
 

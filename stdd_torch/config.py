@@ -11,10 +11,10 @@ are exact TPU re-layouts of the same math); ``fused_s2`` runs s2 through K2
 (``ops/bottleneck.py``); ``temporal_only`` with ``stop_point`` builds the
 FTCN trunk inside the I3D (1×1×1 middle convolutions, the stages before
 ``s{stop_point}``) and configures ``models/ftcn.py::FTCN``; ``int8_stages``
-is not ported yet (ROADMAP §1 item 9) and is refused by
-:class:`stdd_torch.models.i3d.I3D`.
-``MeshConfig`` is kept field for field; nothing in the port reads it yet
-(multi-card training is ROADMAP §1 item 5).
+runs the named stages' convolutions in int8 in eval
+(``models/i3d.py::int8_conv``).
+``MeshConfig`` is kept field for field; nothing reads it, in either package
+(data parallelism is ``parallel/mesh.py``).
 """
 
 from __future__ import annotations

@@ -17,7 +17,8 @@ lm68s)``) are read by :func:`load_reference_cache`.
 The CLI decodes ``.y4m`` videos only (``eval/harness.py::
 iter_video_frames``); it runs on the card (``--device cuda``, the default,
 dense there) or with ``--device cpu``; ``--clip_size`` sets the frames the
-model takes (ADVICE.md r5 #2); ``--int8`` is refused by name.
+model takes (ADVICE.md r5 #2); ``--int8`` runs s3-s5 through the int8
+convolutions.
 
 CLI: ``python -m stdd_torch.eval.demo --video_root DIR [--ckpt CKPT]
 --yunet_model YUNET.onnx``.
@@ -278,7 +279,8 @@ def main(argv=None):
     ap.add_argument("--upload_format", default="rgb", choices=["rgb", "yuv420"],
                     help="crop upload format; yuv420 halves host->device bytes")
     ap.add_argument("--int8", action="store_true",
-                    help="not ported: the int8 serving knob (ROADMAP.md §1 item 9)")
+                    help="int8 dynamic-quant convs for the wide I3D stages "
+                         "(s3-s5); scores shift by the quantization error")
     ap.add_argument("--model_crop", type=int, default=None,
                     help="crop size the --jax_ckpt was trained at (default: "
                          "the checkpoint's sidecar metadata, else 224)")
@@ -287,14 +289,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.int8:
-        raise SystemExit("--int8 is not ported yet: it waits for the int8 serving knob "
-                         "(ROADMAP.md §1 item 9)")
     device = check_device(args.device, "demo")
     videos = collect_videos(args.video_root, args.per_class)
     check_decodable([v[0] for v in videos])
     scorer = load_scorer(args.ckpt, args.jax_ckpt, args.clip_size, args.model_crop,
-                         upload_format=args.upload_format, device=device)
+                         upload_format=args.upload_format, device=device, int8=args.int8)
     torch.backends.cudnn.allow_tf32 = False     # the detector's float32, as the app runs it
     detector = yunet_demo_detector(yunet_detector(args.yunet_model, device, 0.5, 128, "demo"))
     dense = args.dense if args.dense is not None else device.type == "cuda"

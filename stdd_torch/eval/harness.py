@@ -23,7 +23,7 @@ What differs from the JAX module:
   ``--jax_ckpt`` has a sidecar (ADVICE.md r5 #2; ``runtime/classifier.py::
   load_scorer``).
 - ``--device`` picks the card (the default; the harness stops without one)
-  or the CPU. ``--int8`` is refused by name (ROADMAP.md §1 item 9).
+  or the CPU. ``--int8`` runs s3-s5 through the int8 convolutions.
 
 Usage:
     python -m stdd_torch.eval.harness --video_root DIR --ckpt CKPT.pth \\
@@ -320,7 +320,8 @@ def build_engine(args, detect_fn=None):
         crop_scale=args.crop_scale,
     )
     scorer = load_scorer(args.ckpt, args.jax_ckpt, args.clip_size, args.model_crop,
-                         upload_format=args.upload_format, device=device)
+                         upload_format=args.upload_format, device=device,
+                         int8=getattr(args, "int8", False))
     if detect_fn is None:
         detector = yunet_detector(args.yunet_model, device, args.det_conf, args.det_topk,
                                   "harness")
@@ -411,7 +412,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--upload_format", default="rgb", choices=["rgb", "yuv420"],
                     help="crop upload format; yuv420 halves host->device bytes")
     ap.add_argument("--int8", action="store_true",
-                    help="not ported: the int8 serving knob (ROADMAP.md §1 item 9)")
+                    help="int8 dynamic-quant convs for the wide I3D stages "
+                         "(s3-s5); scores shift by the quantization error")
     ap.add_argument("--no_warmup", dest="warmup", action="store_false",
                     help="skip the startup run of every scorer batch shape")
     ap.add_argument("--no_quality", dest="quality", action="store_false",
@@ -426,9 +428,6 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
 
-    if args.int8:
-        raise SystemExit("--int8 is not ported yet: it waits for the int8 serving knob "
-                         "(ROADMAP.md §1 item 9)")
     if args.video_list:
         videos = collect_from_list(args.video_list)
     elif args.video_root:

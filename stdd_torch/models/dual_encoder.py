@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import global_rand
+
 LN_EPS = 1e-6                      # flax nn.LayerNorm
 HEAD_DROPOUT = 0.2                 # the binary head's dropout, fixed in the reference
 
@@ -83,13 +85,18 @@ def dropout(x: torch.Tensor, p: float, train: bool, generator: Optional[torch.Ge
             shape=None) -> torch.Tensor:
     """flax ``Dropout``: keep with probability ``1 - p`` and scale by
     ``1 / (1 - p)``; identity outside training or at ``p = 0``. ``shape``
-    (default ``x.shape``) is the mask's, broadcast over ``x``."""
+    (default ``x.shape``) is the mask's, broadcast over ``x``; a mask of
+    ``x``'s shape is, in a data-parallel block, this rank's rows of the
+    global batch's (``parallel/mesh.py::global_rand``)."""
     if not train or p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
     keep = 1.0 - p
-    mask = torch.rand(shape or x.shape, generator=generator, device=x.device) < keep
+    if shape is None:
+        mask = global_rand(x.shape, generator, x.device) < keep
+    else:
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, x.new_zeros(()))
 
 

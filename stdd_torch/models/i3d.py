@@ -31,6 +31,15 @@ bottleneck ``resnet_helper.py:196``; head ``head_helper.py:9``).
   ``ResBlock._fused`` does; the parameters stay where the unfused block
   keeps them, so one checkpoint serves both. Eval only: in train mode the
   blocks run unfused, as in JAX.
+- ``int8_stages`` (eval only) runs every convolution of the named stages,
+  projections included, as JAX's ``Conv3dBN._int8_conv``
+  (``stdd_tpu/models/i3d.py:103-126``) computes it: per-output-channel
+  int8 weights, per-tensor int8 activations (the scale taken over the whole
+  batch, padding slots included, so a clip's score depends on its
+  batch-mates, as in JAX), an int32 product through ``torch._int_mm`` over
+  an im2col of the quantized input (cuBLASLt on the card), dequantized to
+  float32; the BN after it returns to the compute dtype. Train mode ignores
+  it; the parameter tree is the float path's.
 - ``temporal_only`` is the FTCN trunk inside the I3D: every bottleneck's
   middle convolution becomes 1×1×1 (``spatial_1x1``,
   ``stdd_tpu/models/i3d.py:357-389``) and the stages stop before
@@ -54,6 +63,7 @@ from torch import nn
 
 from ..config import I3DConfig
 from ..ops.bottleneck import fold_bn, fused_bottleneck
+from ..parallel.mesh import active_data_parallel, global_rand, sync_batch_stats
 
 # Stage depths for ResNet-{18,50,101} (video_model_builder.py:18)
 STAGE_DEPTH = {18: (2, 2, 2, 2), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
@@ -63,21 +73,96 @@ IMAGENET_MEAN = np.array([0.485 * 255, 0.456 * 255, 0.406 * 255], dtype=np.float
 IMAGENET_STD = np.array([0.229 * 255, 0.224 * 255, 0.225 * 255], dtype=np.float32)
 
 
+def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 of a [Cout, Cin, kt, kh, kw]
+    float32 kernel: ``sw = max(max|w|, 1e-8)/127``, ``wq = round(w/sw)``
+    (half to even), as ``stdd_tpu/models/i3d.py:116-117``."""
+    sw = torch.clamp(w.abs().amax(dim=(1, 2, 3, 4)), min=1e-8) / 127.0
+    return torch.round(w / sw.view(-1, 1, 1, 1, 1)).to(torch.int8), sw
+
+
+def quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8: ``sx = max(max|x| in float32, 1e-8)/127``,
+    ``xq = clip(round(x/sx), -127, 127)`` (``stdd_tpu/models/i3d.py:118-120``)."""
+    sx = torch.clamp(x.abs().max().float(), min=1e-8) / 127.0
+    return torch.clamp(torch.round(x.float() / sx), -127, 127).to(torch.int8), sx
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def int8_conv_acc(xq: torch.Tensor, wq: torch.Tensor, stride, padding) -> torch.Tensor:
+    """The int32 accumulators of a 3D convolution of int8 ``xq`` [B, C, T,
+    H, W] by int8 ``wq`` [Cout, C, kt, kh, kw] → [B, Cout, T', H', W']
+    (``channels_last_3d``): an im2col of ``xq`` (a view for a 1×1×1
+    stride-1 kernel) times the kernel in ``torch._int_mm``. cuBLASLt's int8
+    GEMM takes more than 16 rows and K, N multiples of 8, so M, K and N are
+    zero-padded to fit (exact). The sums stay below 2³¹: at most
+    127²·27·2048 ≈ 8.9e8."""
+    B = xq.shape[0]
+    cout, _, kt, kh, kw = wq.shape
+    st, sh, sw = stride
+    if any(padding):
+        pt, ph, pw = padding
+        xq = F.pad(xq, (pw, pw, ph, ph, pt, pt))
+    cols = xq.permute(0, 2, 3, 4, 1)                         # B T H W C
+    if (kt, kh, kw) != (1, 1, 1) or (st, sh, sw) != (1, 1, 1):
+        cols = cols.unfold(1, kt, st).unfold(2, kh, sh).unfold(3, kw, sw)   # B T' H' W' C kt kh kw
+        cols = cols.permute(0, 1, 2, 3, 5, 6, 7, 4)                          # … kt kh kw C
+    out_shape = cols.shape[:4]
+    a = cols.reshape(-1, kt * kh * kw * xq.shape[1])
+    w = wq.permute(0, 2, 3, 4, 1).reshape(cout, -1)          # [N, K], K in (kt, kh, kw, C)
+    M, K = a.shape
+    Mp, Kp, Np = max(M, 17), _round_up(K, 8), _round_up(cout, 8)
+    if (Mp, Kp) != (M, K):
+        a = F.pad(a, (0, Kp - K, 0, Mp - M))
+    if (Np, Kp) != (cout, K):
+        w = F.pad(w, (0, Kp - K, 0, Np - cout))
+    acc = torch._int_mm(a.contiguous(), w.contiguous().t())
+    int8_conv_acc.launches += 1
+    acc = acc[:M, :cout].reshape(out_shape + (cout,))
+    return acc.permute(0, 4, 1, 2, 3)
+
+
+int8_conv_acc.launches = 0
+
+
+def int8_conv_acc_reference(xq: torch.Tensor, wq: torch.Tensor, stride, padding
+                            ) -> torch.Tensor:
+    """Plain version of :func:`int8_conv_acc`: a float64 convolution of the
+    integers, exact (each product ≤ 127², every sum far below 2⁵³)."""
+    acc = F.conv3d(xq.double(), wq.double(), None, stride, padding)
+    return acc.to(torch.int32)
+
+
+def int8_conv(x: torch.Tensor, w: torch.Tensor, stride, padding) -> torch.Tensor:
+    """JAX's ``Conv3dBN._int8_conv``: quantize ``x`` and ``w``, the int32
+    product, ``acc.float() * (sx·sw)`` → float32."""
+    wq, sw = quantize_weight(w.float())
+    xq, sx = quantize_activation(x)
+    acc = int8_conv_acc(xq, wq, stride, padding)
+    return acc.float() * (sx * sw).view(1, -1, 1, 1, 1)
+
+
 class Conv3dBN(nn.Module):
     """conv3d (no bias) → BatchNorm, optionally with a zero-init BN scale
     (the final BN of a bottleneck). ``bn.momentum`` is torch's convention:
-    the weight of the batch in the running statistics."""
+    the weight of the batch in the running statistics. ``int8``: in eval,
+    the convolution is :func:`int8_conv` and the BN's output is cast back
+    to the input's dtype, as flax's BN with ``dtype`` does."""
 
     def __init__(self, dim_in: int, features: int, kernel: Tuple[int, int, int],
                  stride: Tuple[int, int, int] = (1, 1, 1),
                  padding: Optional[Sequence[int]] = None,
                  zero_init_scale: bool = False, bn_eps: float = 1e-5,
-                 bn_momentum: float = 0.1):
+                 bn_momentum: float = 0.1, int8: bool = False):
         super().__init__()
         pad = tuple(padding) if padding is not None else tuple(k // 2 for k in kernel)
         self.conv = nn.Conv3d(dim_in, features, kernel, stride, pad, bias=False)
         self.bn = nn.BatchNorm3d(features, eps=bn_eps, momentum=bn_momentum)
         self.zero_init_scale = zero_init_scale
+        self.int8 = int8
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -92,6 +177,9 @@ class Conv3dBN(nn.Module):
             self.bn.weight.zero_()
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.int8 and not train:
+            y = int8_conv(x, self.conv.weight, self.conv.stride, self.conv.padding)
+            return batch_norm(self.bn, y, False).to(x.dtype)
         w = self.conv.weight.to(dtype=x.dtype, memory_format=torch.channels_last_3d)
         x = F.conv3d(x, w, None, self.conv.stride, self.conv.padding)
         return batch_norm(self.bn, x, train)
@@ -108,16 +196,35 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor, train: bool
     form; then the running statistics move to ``(1-m)·old + m·batch`` with
     ``m = bn.momentum``. The op hands back the mean and
     ``1/sqrt(var + eps)``, from which the biased variance is recovered
-    (``nn.BatchNorm3d``'s own update would store the unbiased one)."""
+    (``nn.BatchNorm3d``'s own update would store the unbiased one).
+
+    Inside a data-parallel block over more than one rank
+    (``parallel/mesh.py::data_parallel``) the statistics are the global
+    batch's, as GSPMD's mean over a sharded batch axis is in JAX: the mean
+    and biased variance come from :func:`~stdd_torch.parallel.mesh.sync_batch_stats`
+    (float32, or float64 for float64 ``x``), the gradient flows through
+    their all-reduces, and every rank moves its running statistics by the
+    same global values."""
     if not train:
         inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
         shift = bn.bias - bn.running_mean * inv
         view = (-1,) + (1,) * (x.dim() - 2)
         return x * inv.to(x.dtype).view(view) + shift.to(x.dtype).view(view)
+    dp = active_data_parallel()
+    if dp is not None:
+        mean, var = sync_batch_stats(x, dp, torch.promote_types(x.dtype, torch.float32))
+        view = (1, -1) + (1,) * (x.dim() - 2)
+        scale = torch.rsqrt(var + bn.eps) * bn.weight
+        y = (x - mean.view(view)) * scale.view(view) + bn.bias.view(view)
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+            bn.running_var.copy_((1 - m) * bn.running_var + m * var)
+        return y.to(x.dtype)
     y, mean, invstd = torch.native_batch_norm(x, bn.weight, bn.bias, None, None, True,
                                               0.0, bn.eps)
     with torch.no_grad():
-        var = (invstd.double().pow(-2) - bn.eps).clamp_(min=0).float()
+        var = (invstd.double().pow(-2) - bn.eps).clamp_(min=0).to(bn.running_var.dtype)
         m = bn.momentum
         bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
         bn.running_var.copy_((1 - m) * bn.running_var + m * var)
@@ -155,11 +262,12 @@ class Bottleneck(nn.Module):
 
     def __init__(self, dim_in: int, dim_out: int, dim_inner: int,
                  temp_kernel_size: int, stride: int, zero_init_final_bn: bool,
-                 bn_eps: float, bn_momentum: float = 0.1, spatial_1x1: bool = False):
+                 bn_eps: float, bn_momentum: float = 0.1, spatial_1x1: bool = False,
+                 int8: bool = False):
         super().__init__()
         tk = temp_kernel_size
         ks = 1 if spatial_1x1 else 3
-        bn = dict(bn_eps=bn_eps, bn_momentum=bn_momentum)
+        bn = dict(bn_eps=bn_eps, bn_momentum=bn_momentum, int8=int8)
         self.a = Conv3dBN(dim_in, dim_inner, (tk, 1, 1), (1, 1, 1), (tk // 2, 0, 0), **bn)
         self.b = Conv3dBN(dim_inner, dim_inner, (1, ks, ks), (1, stride, stride),
                           (0, ks // 2, ks // 2), **bn)
@@ -181,14 +289,14 @@ class ResBlock(nn.Module):
     def __init__(self, dim_in: int, dim_out: int, dim_inner: int,
                  temp_kernel_size: int, stride: int, zero_init_final_bn: bool,
                  bn_eps: float, fused_eval: bool = False, bn_momentum: float = 0.1,
-                 spatial_1x1: bool = False):
+                 spatial_1x1: bool = False, int8: bool = False):
         super().__init__()
         self.branch2 = Bottleneck(dim_in, dim_out, dim_inner, temp_kernel_size,
                                   stride, zero_init_final_bn, bn_eps, bn_momentum,
-                                  spatial_1x1)
+                                  spatial_1x1, int8)
         self.shortcut = (
             Conv3dBN(dim_in, dim_out, (1, 1, 1), (1, stride, stride), (0, 0, 0),
-                     bn_eps=bn_eps, bn_momentum=bn_momentum)
+                     bn_eps=bn_eps, bn_momentum=bn_momentum, int8=int8)
             if dim_in != dim_out or stride != 1 else None
         )
         self.tk = temp_kernel_size
@@ -230,8 +338,9 @@ class ResBlock(nn.Module):
         (its plain version can stand in to hold the kernel to it)."""
         if self.fused_eval and not train:
             return bottleneck(x, *self.folded_weights(x.dtype), tk=self.tk)
+        br = self.branch2(x, train)                 # branch first, as JAX runs it
         sc = self.shortcut(x, train) if self.shortcut is not None else x
-        return F.relu(sc + self.branch2(x, train))
+        return F.relu(sc + br)
 
 
 def stage_temp_kernels(basis: Sequence[int], num_blocks: int, num_temp: int) -> Tuple[int, ...]:
@@ -248,7 +357,7 @@ class ResStage(nn.Module):
                  temp_kernel_basis: Sequence[int], num_blocks: int,
                  num_block_temp_kernel: int, stride: int,
                  zero_init_final_bn: bool, bn_eps: float, fused_eval: bool = False,
-                 bn_momentum: float = 0.1, spatial_1x1: bool = False):
+                 bn_momentum: float = 0.1, spatial_1x1: bool = False, int8: bool = False):
         super().__init__()
         tks = stage_temp_kernels(temp_kernel_basis, num_blocks, num_block_temp_kernel)
         self.num_blocks = num_blocks
@@ -256,7 +365,7 @@ class ResStage(nn.Module):
             self.add_module(f"pathway0_res{i}", ResBlock(
                 dim_in if i == 0 else dim_out, dim_out, dim_inner, tks[i],
                 stride if i == 0 else 1, zero_init_final_bn, bn_eps, fused_eval, bn_momentum,
-                spatial_1x1))
+                spatial_1x1, int8))
 
     def forward(self, x, bottleneck=fused_bottleneck, train: bool = False):
         for i in range(self.num_blocks):
@@ -268,13 +377,14 @@ def flax_dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generat
                  ) -> torch.Tensor:
     """flax's ``nn.Dropout`` in training: each element is kept with
     probability ``1 - rate`` (the mask drawn from ``generator``, on ``x``'s
-    device) and the kept ones are scaled by ``1/(1 - rate)``."""
+    device; in a data-parallel block, this rank's rows of the global
+    batch's mask) and the kept ones are scaled by ``1/(1 - rate)``."""
     if rate <= 0:
         return x
     if generator is None:
         raise ValueError("train-mode dropout needs a torch.Generator")
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = global_rand(x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -346,10 +456,6 @@ class I3D(nn.Module):
     def __init__(self, cfg: Optional[I3DConfig] = None, dtype: torch.dtype = torch.float32):
         super().__init__()
         c = cfg or I3DConfig()
-        if c.int8_stages:
-            raise NotImplementedError(
-                f"int8_stages={c.int8_stages}: the int8 path is not ported yet "
-                "(ROADMAP §1 item 9)")
         self.cfg = c
         self.compute_dtype = dtype
         d2, d3, d4, d5 = STAGE_DEPTH[c.depth]
@@ -373,7 +479,8 @@ class I3D(nn.Module):
                                            stride, c.zero_init_final_bn, c.bn_eps,
                                            fused_eval=name == "s2" and c.fused_s2,
                                            bn_momentum=c.bn_momentum,
-                                           spatial_1x1=c.temporal_only))
+                                           spatial_1x1=c.temporal_only,
+                                           int8=name in c.int8_stages))
         self.head = I3DHead(stages[n_stages - 1][2], c.num_classes, c.fc_init_std,
                             c.dropout_rate)
 

@@ -13,8 +13,9 @@ matches the reference:
 
 The overlay (``draw_overlay``) draws with :mod:`stdd_torch.utils.draw`,
 bit-equal to the JAX package's cv2 calls, and ``--out_video PATH.y4m``
-writes it at 30 fps. A window (``--show``), webcams and video containers
-other than ``.y4m`` stay refused by name (ROADMAP.md §1 item 2).
+writes it at 30 fps; ``--int8`` scores through the int8 convolutions of
+s3-s5. A window (``--show``), webcams and video containers other than
+``.y4m`` stay refused by name (ROADMAP.md §1 item 2).
 
 CLI, on the card: ``python -m stdd_torch.runtime.app --source screen:TITLE
 --det_model face_detection_yunet_2023mar.onnx [--ckpt REF.pth | --jax_ckpt CKPT]``,
@@ -188,7 +189,6 @@ _NOT_PORTED = {
     "--show": f"the overlay's window (cv2.imshow) has no window API open to the port ({_CV2_ITEM})",
     "--out_video": ("the overlay is written as YUV4MPEG2 (.y4m) only; encoding "
                     f".mp4/.avi/.mov/.mkv waits for an encoder ({_CV2_ITEM})"),
-    "--int8": "the int8 serving knob (ROADMAP.md §1 item 9)",
 }
 
 
@@ -218,7 +218,9 @@ def main(argv=None):
                          "not ported, ROADMAP.md §1 item 2)")
     ap.add_argument("--upload_format", default="rgb", choices=["rgb", "yuv420"],
                     help="crop upload format; yuv420 halves host->device bytes")
-    ap.add_argument("--int8", action="store_true", help="not ported: " + _NOT_PORTED["--int8"])
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 dynamic-quant convs for the wide I3D stages "
+                         "(s3-s5); scores shift by the quantization error")
     ap.add_argument("--model_crop", type=int, default=None,
                     help="crop size the --jax_ckpt was trained at (default: "
                          "the checkpoint's sidecar metadata, else 224)")
@@ -244,9 +246,8 @@ def main(argv=None):
                     help="torch device of the detector and the scorer (default: the card)")
     args = ap.parse_args(argv)
 
-    for flag in ("--show", "--int8"):
-        if getattr(args, flag[2:]):
-            raise SystemExit(f"{flag} is not ported yet: {_NOT_PORTED[flag]}")
+    if args.show:
+        raise SystemExit(f"--show is not ported yet: {_NOT_PORTED['--show']}")
     if args.out_video and not args.out_video.lower().endswith(".y4m"):
         raise SystemExit(f"--out_video {args.out_video!r}: {_NOT_PORTED['--out_video']}")
     screen = args.source == "screen" or args.source.startswith("screen:")
@@ -269,7 +270,8 @@ def main(argv=None):
 
     check_device(args.device, "app")
     scorer = load_scorer(args.ckpt, args.jax_ckpt, args.clip_size, args.model_crop,
-                         upload_format=args.upload_format, device=args.device)
+                         upload_format=args.upload_format, device=args.device,
+                         int8=args.int8)
     # the detector's float32 convolutions run without TF32 (cuDNN's default
     # would take it), the precision its card-vs-CPU parity holds them to;
     # the scorer computes in bf16 and does not read the flag

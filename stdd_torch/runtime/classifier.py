@@ -10,7 +10,12 @@ ignored. With ``I3DConfig(fused_s2=True)`` the s2 blocks run K2
 (``ops/bottleneck.py``). A ``temporal_only`` config (a trainer sidecar's
 ``temporal_only: true``) builds the temporal-only I3D, as
 ``stdd_tpu/runtime/classifier.py:287-293`` does; K2 never runs on its
-1×1×1 blocks, K1 still warps every clip. The JAX loader builds that I3D and
+1×1×1 blocks, K1 still warps every clip. ``int8=True`` (the CLIs'
+``--int8``) runs s3-s5 through the int8 convolutions
+(``models/i3d.py::int8_conv``) unless the config names its own
+``int8_stages``, as ``stdd_tpu/runtime/classifier.py:142-148`` does; it
+composes with ``fused_s2`` (K2 keeps s2), ``temporal_only`` (the stages
+that exist) and both upload formats. The JAX loader builds that I3D and
 not the FTCN, so it refuses the checkpoint ``run_i3d --ftcn`` writes (it
 does not cover the model); so does this one. The JAX scorer's ``round_aligned_u8`` and
 ``score_index`` options (no caller sets them) are not ported; the score is
@@ -144,12 +149,16 @@ class ClipScorer:
     → probs [B] float32 (sigmoid of the first logit).
 
     The model computes in ``dtype`` (bf16 by default) over float32
-    parameters, on ``device`` ("cuda" unless the caller asks for "cpu")."""
+    parameters, on ``device`` ("cuda" unless the caller asks for "cpu").
+    ``int8``: the eval-only int8 convolutions for s3-s5 when ``cfg`` names
+    no ``int8_stages`` (scores shift by the quantization error)."""
 
     def __init__(self, state_dict, cfg: Optional[I3DConfig] = None,
                  dtype: torch.dtype = torch.bfloat16, upload_format: str = "rgb",
-                 device="cuda"):
+                 device="cuda", int8: bool = False):
         self.cfg = cfg or I3DConfig()
+        if int8 and not self.cfg.int8_stages:
+            self.cfg = dataclasses.replace(self.cfg, int8_stages=("s3", "s4", "s5"))
         if upload_format not in ("rgb", "yuv420"):
             raise ValueError(f"upload_format must be 'rgb' or 'yuv420', got {upload_format!r}")
         self.upload_format = upload_format
@@ -283,15 +292,19 @@ class ClipScorer:
 
     # -- public entry points --------------------------------------------------
 
+    def score_device(self, crops, boxes, lm5, valid) -> torch.Tensor:
+        """Upload and score without waiting: probs [B] float32 on the
+        scorer's device."""
+        return self._score_impl(
+            self._to_device(crops), self._to_device(boxes, torch.float32),
+            self._to_device(lm5, torch.float32), self._to_device(valid, torch.bool))
+
     def score_async(self, crops, boxes, lm5, valid, path: str = "auto") -> ProbsHandle:
         """Dispatch without blocking; returns a :class:`ProbsHandle`
         (poll ``is_ready()``, materialize with ``np.asarray``). ``path`` is
         accepted for the JAX scorer's signature and ignored: K1 serves
         every clip."""
-        probs = self._score_impl(
-            self._to_device(crops), self._to_device(boxes, torch.float32),
-            self._to_device(lm5, torch.float32), self._to_device(valid, torch.bool))
-        return ProbsHandle(probs)
+        return ProbsHandle(self.score_device(crops, boxes, lm5, valid))
 
     def score(self, crops, boxes, lm5, valid) -> np.ndarray:
         return np.asarray(self.score_async(crops, boxes, lm5, valid))

@@ -27,6 +27,17 @@ Random draws (dropout masks, SLERP partners and ``t``) come from one
 dropout and ``jax.random.gumbel`` cannot be reproduced in torch. A caller
 may pass the SLERP draws in (:func:`slerp_draws` makes them), so the SLERP
 math is held to JAX's on JAX's draws.
+
+Data parallel (``make_dual_train_step(..., dp=)``): each rank runs the
+encoders on its rows of the global batch (dropout masks drawn over the
+global batch), then every rank gathers, with autograd, what the loss reads
+(the embedding, the sequences and attention weights, the aux outputs, the
+batch's labels, lengths and groups) and computes the loss on the global
+batch, as GSPMD does in JAX: alignment, uniformity and the temporal InfoNCE
+are pairwise over it, ``aux_pred`` is a ratio of sums, the ``train_agg``
+groups span it. The gradients are averaged over the ranks before the
+update, which is then the single-process one. SLERP's in-batch partners
+and DAT are refused at world > 1 (ROADMAP.md §1 item 5).
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ import numpy as np
 import torch
 
 from ..models.dual_encoder import DualEncoderAU_LMK, lengths_to_mask
+from ..parallel.mesh import (DataParallel, active_data_parallel, average_gradients,
+                             data_parallel, gather_rows)
 from ..utils.msgpack import msgpack_serialize
 from ..utils.weights import dual_torch_to_flax
 from . import metrics as M
@@ -168,10 +181,32 @@ def dual_loss(model: DualEncoderAU_LMK, args: DualTrainArgs, batch: Dict[str, to
     ``lengths`` [B], ``dom_id`` [B] and ``grp`` [B] (dense group ids for
     ``train_agg``). ``draws``: the SLERP partners and ``t``, else drawn
     from ``generator``."""
-    lengths = batch.get("lengths")
-    out = model(batch["A"], batch["L"], lengths=lengths, train=True,
+    out = model(batch["A"], batch["L"], lengths=batch.get("lengths"), train=True,
                 need_aux=args.aux_pred_w > 0 or args.aux_con_w > 0, return_z=True,
                 return_seq=True, generator=generator, run_heads=False)
+    dp = active_data_parallel()
+    if dp is None:
+        return _loss_terms(model, args, batch, out, dat_lambda, generator, draws)
+    # the global batch on every rank: the loss terms couple its rows
+    out = {k: _gather_tree(v, dp) for k, v in out.items() if k != "pad_mask"}
+    batch = {k: gather_rows(v, dp) for k, v in batch.items() if k != "L"}
+    with data_parallel(None):
+        return _loss_terms(model, args, batch, out, dat_lambda, generator, draws)
+
+
+def _gather_tree(v, dp: DataParallel):
+    if isinstance(v, dict):
+        return {k: _gather_tree(x, dp) for k, x in v.items()}
+    return gather_rows(v, dp) if isinstance(v, torch.Tensor) else v
+
+
+def _loss_terms(model: DualEncoderAU_LMK, args: DualTrainArgs, batch: Dict[str, torch.Tensor],
+                out: Dict[str, Any], dat_lambda: float, generator: torch.Generator,
+                draws: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`dual_loss` after the encoders: the heads on the (SLERP'd)
+    embedding and every loss term, over the batch ``out`` covers."""
+    lengths = batch.get("lengths")
     y = batch["y"].float()
     z = out["z"]
     pad = lengths_to_mask(lengths, batch["A"].shape[1]) if lengths is not None else None
@@ -269,22 +304,32 @@ def dual_loss(model: DualEncoderAU_LMK, args: DualTrainArgs, batch: Dict[str, to
 
 
 def make_dual_train_step(model: DualEncoderAU_LMK, tx: GradientTransformation,
-                         args: DualTrainArgs) -> Callable:
+                         args: DualTrainArgs, dp: Optional[DataParallel] = None) -> Callable:
     """``step(state, batch, active_mask, dat_lambda, seed, draws=None) ->
     (state, parts)``: one update with the frozen branch masked
     (``active_mask``, from :func:`altfreeze.active_mask_from_labels`). The
     random draws come from a generator on the model's device seeded from
     ``(seed, state.step)``. ``parts`` are the loss terms, ``acc`` and the
-    unmasked gradients' ``grad_norm``, as tensors on the device."""
+    unmasked gradients' ``grad_norm``, as tensors on the device. With
+    ``dp``, ``batch`` holds this rank's rows and the step is data-parallel
+    (module docstring); ``parts`` are the global batch's."""
+    if dp is not None and dp.world > 1:
+        for flag in ("slerp", "dat"):
+            if getattr(args, flag):
+                raise ValueError(f"{flag}=True is not ported to data-parallel training "
+                                 "(world > 1; ROADMAP.md §1 item 5)")
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
 
     def step(state: TrainState, batch, active_mask, dat_lambda: float, seed: int, draws=None):
         generator.manual_seed(fold_in(seed, state.step))
         names = list(state.params)
-        loss, parts = dual_loss(model, args, batch, dat_lambda, generator, draws)
+        with data_parallel(dp):
+            loss, parts = dual_loss(model, args, batch, dat_lambda, generator, draws)
         grads = dict(zip(names, torch.autograd.grad(loss, [state.params[k] for k in names])))
         with torch.no_grad():
+            if dp is not None:
+                grads = average_gradients(grads, dp)
             parts = {k: v.detach() for k, v in parts.items()}
             parts["grad_norm"] = global_norm(grads)
             opt_state = masked_update(tx, grads, state.opt_state, state.params, active_mask)

@@ -6,6 +6,14 @@ Port of ``stdd_tpu/train/engine_i3d.py``: ``I3DTrainArgs`` :38,
 ``precise_bn_update`` :182 (reference ``slowfast/models/optimizer.py``,
 ``slowfast/utils/lr_policy.py``, ``slowfast/utils/bn_helper.py:11``).
 
+Data parallel (``dp``, a ``parallel.mesh.DataParallel``): each rank feeds
+its rows of the global batch; BN normalizes with the global statistics and
+dropout draws the global batch's mask (``parallel.mesh.data_parallel``),
+the gradient tree is averaged over the ranks between ``autograd.grad`` and
+the update (so clipping sees the global gradient), and the metrics are the
+global ones: the step is the single-process step on the global batch, as
+GSPMD runs JAX's.
+
 The optimizer is optax's chain written out, transform by transform
 (``train/optim.py``), in optax's order, because the order decides the
 numbers:
@@ -36,6 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.mesh import DataParallel, average_gradients, data_parallel, mean_over_ranks
 from .altfreeze import i3d_alt_labels, i3d_phase_mask, masked_update
 from .lr_policy import cosine_lr, step_decay, with_warmup
 from .optim import (GradientTransformation, add_decayed_weights, chain, clip_by_global_norm,
@@ -116,13 +125,15 @@ def make_lr_schedule(args: I3DTrainArgs) -> Callable[[int], float]:
 
 
 def make_i3d_train_step(model: nn.Module, tx: GradientTransformation, labels: Dict[str, str],
-                        alter_freq: int, loss_fn=bce_with_logits) -> Callable:
+                        alter_freq: int, loss_fn=bce_with_logits,
+                        dp: Optional[DataParallel] = None) -> Callable:
     """``step(state, clips, targets, seed) -> (state, metrics)``: one
     AltFreezing iteration. The phase mask comes from ``state.step``; the
     dropout mask from a generator on the model's device seeded from
     ``(seed, state.step)``. ``metrics`` are tensors on the device (``loss``,
     ``acc``, ``grad_norm`` of the unmasked gradients) and the host's
-    ``phase_temporal``."""
+    ``phase_temporal``. With ``dp``, ``clips`` are this rank's rows and the
+    step is data-parallel (module docstring)."""
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
 
@@ -130,15 +141,20 @@ def make_i3d_train_step(model: nn.Module, tx: GradientTransformation, labels: Di
         mask = i3d_phase_mask(labels, state.step, alter_freq)
         generator.manual_seed(fold_in(seed, state.step))
         names = list(state.params)
-        logits = model(clips, train=True, generator=generator)
+        with data_parallel(dp):
+            logits = model(clips, train=True, generator=generator)
         loss = loss_fn(logits, targets)
         grads = dict(zip(names, torch.autograd.grad(loss, [state.params[k] for k in names])))
         with torch.no_grad():
+            if dp is not None:
+                grads = average_gradients(grads, dp)
             opt_state = masked_update(tx, grads, state.opt_state, state.params, mask)
             probs = torch.sigmoid(logits.detach().float().reshape(-1))
+            acc = ((probs > 0.5) == (targets.reshape(-1) > 0.5)).float().mean()
+            loss, acc = mean_over_ranks((loss.detach(), acc), dp)
             metrics = {
-                "loss": loss.detach(),
-                "acc": ((probs > 0.5) == (targets.reshape(-1) > 0.5)).float().mean(),
+                "loss": loss,
+                "acc": acc.float(),
                 "grad_norm": global_norm(grads),
                 "phase_temporal": 1.0 if (state.step // alter_freq) % 2 == 0 else 0.0,
             }
@@ -147,27 +163,28 @@ def make_i3d_train_step(model: nn.Module, tx: GradientTransformation, labels: Di
     return step
 
 
-def init_i3d_training(model: nn.Module, args: I3DTrainArgs
+def init_i3d_training(model: nn.Module, args: I3DTrainArgs, dp: Optional[DataParallel] = None
                       ) -> Tuple[TrainState, Callable, Callable[[int], float]]:
     """Draw the model's initial weights from ``args.seed`` (the JAX model's
-    initializers, on torch's generator) and build the state, the step and
-    the LR schedule."""
+    initializers, on torch's generator; every rank draws the same) and build
+    the state, the step (data-parallel with ``dp``) and the LR schedule."""
     model.reset_parameters(torch.Generator().manual_seed(args.seed))
     params = dict(model.named_parameters())
     sched = make_lr_schedule(args)
     tx = make_i3d_optimizer(params, args, sched)
     state = TrainState.of(model, tx.init(params))
-    step_fn = make_i3d_train_step(model, tx, i3d_alt_labels(params), args.alter_freq)
+    step_fn = make_i3d_train_step(model, tx, i3d_alt_labels(params), args.alter_freq, dp=dp)
     return state, step_fn, sched
 
 
-def precise_bn_update(model: nn.Module, state: TrainState, batches: Iterable[torch.Tensor]
-                      ) -> TrainState:
+def precise_bn_update(model: nn.Module, state: TrainState, batches: Iterable[torch.Tensor],
+                      dp: Optional[DataParallel] = None) -> TrainState:
     """Replace every BN's running statistics by the average of their true
     values over ``batches`` (bn_helper.py:11 compute_and_update_bn_stats):
     each batch runs in train mode with the BN momentum at 1, so the running
     statistics become that batch's mean and biased variance, which are
-    summed. (JAX recovers the same numbers from its EMA update.)"""
+    summed. (JAX recovers the same numbers from its EMA update.) With
+    ``dp``, ``batches`` are this rank's rows and the statistics global."""
     bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm3d)]
     momenta = [bn.momentum for bn in bns]
     generator = torch.Generator(device=next(model.parameters()).device).manual_seed(0)
@@ -175,7 +192,7 @@ def precise_bn_update(model: nn.Module, state: TrainState, batches: Iterable[tor
     try:
         for bn in bns:
             bn.momentum = 1.0
-        with torch.no_grad():
+        with torch.no_grad(), data_parallel(dp):
             for clips in batches:
                 model(clips, train=True, generator=generator)
                 if sums is None:

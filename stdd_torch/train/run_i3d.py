@@ -22,9 +22,26 @@ so a resumed run keeps protecting and pointing at the best checkpoint.
 ``STDD_TRAIN_TIMING=1`` logs each iteration's split into host data, upload
 and normalize, the step's dispatch and the wait for its result.
 
-Not ported yet, and refused by name: the data-parallel flags ``--mesh``,
-``--distributed``, ``--coordinator``, ``--num_processes``, ``--process_id``
-(ROADMAP §1 item 5).
+Data parallel, with JAX's semantics (``stdd_tpu/train/run_i3d.py:79-336``;
+``parallel/mesh.py``):
+
+- ``--mesh``: one logical host over every visible card. The trainer starts
+  one rank per card (``--device cpu --num_processes N``: N ranks on the CPU,
+  over gloo); every rank reads the same global batches of ``--batch`` and
+  takes its rows, so the train, precise-BN and validation batches are the
+  single-process run's and so, up to rounding, is the run.
+- ``--distributed`` with ``--coordinator host:port --num_processes N
+  --process_id I`` (or torchrun's ``env://``): this process joins a job of N
+  and loads only its ``process_shard`` of the train clips; the local batch
+  is ``--batch / N``; the steps per epoch are the global minimum of the
+  ranks' counts; a short batch is skipped with a warning; each validation
+  batch is cut to a multiple of N, each rank scores its stripe.
+
+In both, the step averages the gradients over the ranks and BN uses the
+global batch's statistics; validation logits are gathered on every rank;
+rank 0 alone logs, writes the checkpoints and ``best.json`` while the others
+wait at a barrier; ``--resume`` loads on every rank. The checkpoints are the
+single-card run's, interchangeable with JAX's.
 """
 
 from __future__ import annotations
@@ -38,12 +55,6 @@ import time
 
 import numpy as np
 import torch
-
-REFUSED = {
-    "mesh": "data-parallel training is not ported yet (ROADMAP §1 item 5)",
-    "distributed": "multi-host training is not ported yet (ROADMAP §1 item 5)",
-}
-
 
 def ensure_val_floor(split: dict, val_ratio: float) -> dict:
     """Floor the video-grouped val carve at one held-out video group.
@@ -99,19 +110,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--bf16", action=argparse.BooleanOptionalAction, default=True)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # the JAX trainer's data-parallel flags (not ported yet)
-    ap.add_argument("--mesh", action="store_true", help="not ported yet")
-    ap.add_argument("--distributed", action="store_true", help="not ported yet")
-    ap.add_argument("--coordinator", default=None, help="not ported yet")
-    ap.add_argument("--num_processes", type=int, default=None, help="not ported yet")
-    ap.add_argument("--process_id", type=int, default=None, help="not ported yet")
+    ap.add_argument("--mesh", action="store_true",
+                    help="data-parallel over every visible card, one rank each (batch = "
+                         "GLOBAL batch); with --device cpu, --num_processes ranks on the CPU")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join a multi-process job (torch.distributed) first")
+    ap.add_argument("--coordinator", default=None,
+                    help="the job's rendezvous host:port (default: torchrun's env://)")
+    ap.add_argument("--num_processes", type=int, default=None,
+                    help="the job's process count (--mesh --device cpu: ranks to start)")
+    ap.add_argument("--process_id", type=int, default=None, help="this process's rank")
     args = ap.parse_args(argv)
-    for flag, why in REFUSED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag}: {why}")
-    for flag in ("coordinator", "num_processes", "process_id"):
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag}: {REFUSED['distributed']}")
+    if not (args.mesh or args.distributed):
+        for flag in ("coordinator", "num_processes", "process_id"):
+            if getattr(args, flag) is not None:
+                raise SystemExit(f"--{flag} needs --distributed (or --mesh --device cpu "
+                                 "for --num_processes)")
     return args
 
 
@@ -173,34 +187,84 @@ def load_train_checkpoint(path: str, model, state, log=None):
 
 
 def main(argv=None):
+    """Train; returns the final state (None in the process that started
+    ``--mesh`` ranks of its own)."""
     args = parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("run_i3d: --device cuda, but torch sees no CUDA device; "
                          "pass --device cpu to train on the CPU")
+    from ..parallel import mesh
+
+    if args.distributed:
+        rank, world = mesh.init_distributed(args.coordinator, args.num_processes,
+                                            args.process_id, args.device)
+        return train(args, mesh.DataParallel(rank, world), shard=True)
+    if not args.mesh:
+        return train(args)
+    if device.type == "cuda":
+        world = torch.cuda.device_count()
+        if args.num_processes not in (None, world):
+            raise SystemExit(f"--mesh on cuda starts one rank per visible card ({world}); "
+                             "--num_processes is for --device cpu")
+    else:
+        world = args.num_processes or 1
+    if world > 1:
+        mesh.spawn(_mesh_rank, world, (args,), device=args.device)
+        return None
+    mesh.init_distributed(f"127.0.0.1:{mesh.free_port()}", 1, 0, args.device)
+    try:
+        return train(args, mesh.DataParallel(0, 1), shard=False)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _mesh_rank(args) -> None:
+    from ..parallel import mesh
+
+    dist = torch.distributed
+    train(args, mesh.DataParallel(dist.get_rank(), dist.get_world_size()), shard=False)
+
+
+def train(args, dp=None, shard: bool = False):
+    """The training run of :func:`main`; ``dp`` (``parallel.mesh.DataParallel``)
+    makes it a rank of a data-parallel job, which with ``shard`` loads its
+    own stripe of the train clips and feeds local batches, and otherwise
+    takes its rows of the global batches."""
+    import logging
 
     from ..config import I3DConfig
     from ..data.dataset_i3d import I3DClipDataset
     from ..data.splits import make_split
     from ..models.ftcn import FTCN
     from ..models.i3d import I3D, IMAGENET_MEAN, IMAGENET_STD
+    from ..parallel.mesh import (COLLECTIVES, all_reduce_, barrier, gather_rows, local_device,
+                                 local_rows, process_shard)
     from ..utils.checkpoint import find_last, save_checkpoint
     from ..utils.logging import get_logger, set_logger_dir
     from ..utils.meters import TrainMeter, ValMeter
     from .engine_i3d import I3DTrainArgs, init_i3d_training, precise_bn_update
     from .metrics import metrics_from_logits
 
+    rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
+    device = local_device(args.device) if dp is not None else torch.device(args.device)
     os.makedirs(args.out, exist_ok=True)
-    set_logger_dir(args.out)
     log = get_logger("i3d")
+    if rank == 0:
+        set_logger_dir(args.out)
+    else:
+        logging.getLogger("stdd_torch").setLevel(logging.WARNING)
 
     dirs = sorted(glob.glob(os.path.join(args.data, "**", "track_*", "clip_*"), recursive=True))
     split = make_split(dirs, ratios=(1 - args.val_ratio, args.val_ratio, 0.0), seed=args.seed)
     split = ensure_val_floor(split, args.val_ratio)
-    train_ds = I3DClipDataset(clip_dirs=split["train"], T=args.clip_size, is_train=True,
+    # every rank computes the same split (same seed); a sharded rank takes its stripe
+    train_dirs = process_shard(split["train"], rank, world) if shard else split["train"]
+    train_ds = I3DClipDataset(clip_dirs=train_dirs, T=args.clip_size, is_train=True,
                               seed=args.seed)
     val_ds = I3DClipDataset(clip_dirs=split["val"], T=args.clip_size) if split["val"] else None
-    log.info(f"train windows={len(train_ds)} val={len(val_ds) if val_ds else 0} on {device}")
+    log.info(f"rank {rank}/{world}: train windows={len(train_ds)} "
+             f"val={len(val_ds) if val_ds else 0} on {device}")
 
     # the JAX trainer's s2d stem is the plain convolution here; --ftcn trains
     # the FTCN (stdd_tpu/train/run_i3d.py:151-155)
@@ -209,19 +273,36 @@ def main(argv=None):
     model_cls = FTCN if args.ftcn else I3D
     model = model_cls(cfg=cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32).to(device)
     to_flax, _, opt_to_flax, _ = bridges(model)
-    steps_per_epoch = max(1, len(train_ds) // args.batch)
+    local_batch = args.batch // world
+    if local_batch * world != args.batch:
+        raise SystemExit(f"--batch {args.batch} is not divisible by the {world} ranks")
+    # a sharded rank draws local batches from its own clips; otherwise every
+    # rank draws the global batch and keeps its rows
+    feed = local_batch if shard else args.batch
+    steps_per_epoch = max(1, len(train_ds) // feed)
+    if shard and world > 1:
+        # every step is a collective: all ranks run the global minimum of
+        # their batch counts (run_i3d.py:163-176)
+        counts = torch.zeros(world, dtype=torch.int64, device=device)
+        counts[rank] = len(train_ds) // feed
+        counts = all_reduce_(counts, dp).tolist()
+        steps_per_epoch = max(1, min(counts))
+        log.info(f"per-rank batch counts {counts} -> {steps_per_epoch} steps/epoch (global min)")
     targs = I3DTrainArgs(
         base_lr=args.base_lr, max_epoch=args.epochs, warmup_epochs=args.warmup_epochs,
         warmup_start_lr=args.base_lr / 4, optimizer=args.optimizer,
         weight_decay=args.weight_decay, alter_freq=args.alter_freq,
         steps_per_epoch=steps_per_epoch, seed=args.seed, grad_clip=1.0,
     )
-    state, step_fn, sched = init_i3d_training(model, targs)
+    state, step_fn, sched = init_i3d_training(model, targs, dp=dp)
     mean = torch.as_tensor(IMAGENET_MEAN, device=device)
     std = torch.as_tensor(IMAGENET_STD, device=device)
 
     def normalize_clip(clips: np.ndarray) -> torch.Tensor:
         return (torch.from_numpy(clips).to(device).float() - mean) / std
+
+    def rows(a):
+        return local_rows(a, rank, world) if dp is not None and not shard else a
 
     val_meter = ValMeter()
     start_epoch = 0
@@ -239,18 +320,23 @@ def main(argv=None):
         meter = TrainMeter(steps_per_epoch, args.epochs, log_period=10)
         t_last = time.perf_counter()
         for it, (clips, ys) in enumerate(itertools.islice(
-                train_ds.batches(args.batch, seed=args.seed + epoch), steps_per_epoch)):
+                train_ds.batches(feed, seed=args.seed + epoch), steps_per_epoch)):
+            if dp is not None and len(ys) != feed:
+                # a dataset smaller than one batch comes whole: it cannot
+                # split over the ranks (run_i3d.py:258-264)
+                log.warning(f"skipping short batch of {len(ys)} rows (batch {feed})")
+                continue
             t0 = time.perf_counter()
             meter.iter_tic()
-            x = normalize_clip(clips)
-            y = torch.from_numpy(ys).to(device)
+            x = normalize_clip(rows(clips))
+            y = torch.from_numpy(rows(ys)).to(device)
             t1 = time.perf_counter()
             state, m = step_fn(state, x, y, args.seed)
             t2 = time.perf_counter()
             loss, acc = float(m["loss"]), float(m["acc"])
             t3 = time.perf_counter()
             meter.iter_toc()
-            meter.update_stats(loss, sched(state.step), len(ys), acc=acc)
+            meter.update_stats(loss, sched(state.step), len(ys) * (world if shard else 1), acc=acc)
             meter.log_iter_stats(epoch, it)
             if timing:
                 log.info(f"timing iter {it}: data {t0 - t_last:.4f}s "
@@ -260,31 +346,50 @@ def main(argv=None):
         meter.log_epoch_stats(epoch)
 
         if args.precise_bn_batches:
-            pb = (normalize_clip(c) for c, _ in train_ds.batches(args.batch, seed=999))
-            state = precise_bn_update(model, state, itertools.islice(pb, args.precise_bn_batches))
+            n_pb = args.precise_bn_batches
+            if shard and world > 1:
+                n_pb = min(n_pb, steps_per_epoch)   # as many batches on every rank
+            pb = (normalize_clip(rows(c)) for c, _ in train_ds.batches(feed, seed=999)
+                  if dp is None or len(c) == feed)
+            state = precise_bn_update(model, state, itertools.islice(pb, n_pb), dp=dp)
 
         if val_ds is not None and len(val_ds):
             logits, ys_all = [], []
             with torch.inference_mode():
                 for clips, ys in val_ds.batches(args.batch, shuffle=False):
-                    logits.append(model(normalize_clip(clips))[:, 0].float().cpu().numpy())
-                    ys_all.append(ys)
+                    if dp is None:
+                        logits.append(model(normalize_clip(clips))[:, 0].float().cpu().numpy())
+                        ys_all.append(ys)
+                        continue
+                    # every rank reads the same batches, cut to a multiple of
+                    # the ranks; each scores its stripe (run_i3d.py:304-329)
+                    n = (len(ys) // world) * world
+                    if n == 0:
+                        continue
+                    out = model(normalize_clip(local_rows(clips[:n], rank, world)))[:, 0]
+                    logits.append(gather_rows(out.float(), dp).cpu().numpy())
+                    ys_all.append(ys[:n])
             if logits:
                 vm = metrics_from_logits(np.concatenate(logits), np.concatenate(ys_all))
                 val_meter.update(vm["roc_auc"], epoch)
-        tree = to_flax(model.state_dict())
-        tree["opt_state"] = opt_to_flax(state.opt_state)
-        save_checkpoint(args.out, "i3d", epoch + 1, tree, max_to_keep=args.max_to_keep,
-                        metadata={"crop_size": args.crop_size, "clip_size": args.clip_size,
-                                  "temporal_only": bool(args.ftcn), "epoch": epoch + 1},
-                        protect=(f"i3d_{val_meter.best_epoch + 1}.msgpack"
-                                 if val_meter.best_epoch >= 0 else None))
-        if val_meter.best_epoch >= 0:
-            with open(os.path.join(args.out, "best.json"), "w") as f:
-                json.dump({"best_epoch": val_meter.best_epoch,
-                           "best_ckpt": f"i3d_{val_meter.best_epoch + 1}.msgpack",
-                           "best_val_auc": val_meter.best,
-                           "history": val_meter.history}, f, indent=1)
+        if rank == 0:
+            tree = to_flax(model.state_dict())
+            tree["opt_state"] = opt_to_flax(state.opt_state)
+            save_checkpoint(args.out, "i3d", epoch + 1, tree, max_to_keep=args.max_to_keep,
+                            metadata={"crop_size": args.crop_size, "clip_size": args.clip_size,
+                                      "temporal_only": bool(args.ftcn), "epoch": epoch + 1},
+                            protect=(f"i3d_{val_meter.best_epoch + 1}.msgpack"
+                                     if val_meter.best_epoch >= 0 else None))
+            if val_meter.best_epoch >= 0:
+                with open(os.path.join(args.out, "best.json"), "w") as f:
+                    json.dump({"best_epoch": val_meter.best_epoch,
+                               "best_ckpt": f"i3d_{val_meter.best_epoch + 1}.msgpack",
+                               "best_val_auc": val_meter.best,
+                               "history": val_meter.history}, f, indent=1)
+        if dp is not None:
+            barrier(dp)                 # the others wait for rank 0's files
+    if dp is not None:
+        log.info(f"collectives: {dict(COLLECTIVES)}")
     return state
 
 

@@ -210,9 +210,8 @@ def test_x11_frames_bit_equal_to_jax(case):
 
 @pytest.mark.parametrize("argv", [["--source", "clip.mp4"], ["--source", "webcam"],
                                   ["--source", "screen", "--show"],
-                                  ["--source", "screen", "--out_video", "o.mp4"],
-                                  ["--source", "screen", "--int8"]],
-                         ids=["video", "webcam", "show", "out_video", "int8"])
+                                  ["--source", "screen", "--out_video", "o.mp4"]],
+                         ids=["video", "webcam", "show", "out_video"])
 def test_main_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="ROADMAP"):
         app.main(argv + ["--device", "cpu"])

@@ -3,8 +3,11 @@ scorer (unfused and ``fused_s2``, packed and dense, temporal-only) on the
 card against the same scorer on the CPU, the device-resident ring path
 (pushes and gathers on a side CUDA stream) against the host-packed path,
 the data production models, the evaluation harness's ``run_video`` and a
-reference-format checkpoint on the card against the CPU, and the FTCN's
-forward and train step on the card against the CPU.
+reference-format checkpoint on the card against the CPU, the FTCN's
+forward and train step on the card against the CPU, the int8 convolutions
+(the int32 GEMM on the card against its plain version, the int8 scorer
+against the CPU's) and a data-parallel step on the card (world 1 over NCCL,
+world 2 over gloo carrying CUDA tensors) against the single-process step.
 
 Every test here needs a card: each is marked ``cuda`` and skips with the
 reason "no CUDA device" where there is none. The file imports no JAX, so on
@@ -501,3 +504,132 @@ def test_temporal_only_scorer_uses_k1_and_matches_the_plain_warp(cuda):
                             warp=warp_affine_reference).cpu().numpy()
     np.testing.assert_array_equal(got, plain)
     assert np.abs(got - cpu.score(crops, boxes, lm5, valid)).max() <= 1e-4
+
+
+@pytest.mark.parametrize("shape,kernel,stride", [
+    ((2, 256, 8, 14, 14), (1, 3, 3), (1, 1, 1)),     # an s4 middle convolution
+    ((2, 512, 8, 28, 28), (1, 1, 1), (1, 2, 2)),     # s4's projection
+    ((1, 12, 2, 5, 5), (3, 1, 1), (1, 1, 1)),        # M < 17, K and N padded
+], ids=["s4_b", "s4_proj", "padded"])
+def test_int8_accumulators_on_card_equal_the_plain_version(cuda, shape, kernel, stride):
+    """cuBLASLt's int8 GEMM (``torch._int_mm``) over the im2col against a
+    float64 convolution of the integers on the card (both exact)."""
+    from stdd_torch.models import i3d
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    xq = torch.randint(-127, 128, shape, generator=g, device=cuda, dtype=torch.int8)
+    xq = xq.contiguous(memory_format=torch.channels_last_3d)
+    wq = torch.randint(-127, 128, (shape[1] // 2 + 3, shape[1]) + kernel, generator=g,
+                       device=cuda, dtype=torch.int8)
+    pad = tuple(k // 2 for k in kernel)
+    acc = i3d.int8_conv_acc(xq, wq, stride, pad)
+    assert acc.dtype == torch.int32 and acc.is_cuda
+    torch.testing.assert_close(acc, i3d.int8_conv_acc_reference(xq, wq, stride, pad),
+                               rtol=0, atol=0)
+
+
+def test_int8_scorer_on_card_matches_cpu(cuda):
+    """float32 int8 probs (s3-s5), card against CPU, and the bf16 int8
+    scorer near its float scorer; the integer GEMM runs on every conv of
+    s3-s5 (42 a forward)."""
+    from stdd_torch.models import i3d
+
+    rng = np.random.RandomState(0)
+    B, T = 2, CFG.num_frames
+    crops = rng.randint(0, 255, (B, T, 96, 96, 3)).astype(np.uint8)
+    boxes = np.tile(np.array([5, 5, 90, 90], np.float32), (B, T, 1))
+    lm5 = np.tile((STD_POINTS_256 * 0.3 + 10).astype(np.float32), (B, T, 1, 1))
+    valid = np.ones(B, bool)
+    sd = ClipScorer.random_init(CFG, device="cpu").model.state_dict()
+    probs = {}
+    for where, dtype in (("cpu", torch.float32), (cuda, torch.float32), (cuda, torch.bfloat16)):
+        s = ClipScorer(sd, cfg=CFG, dtype=dtype, device=where, int8=True)
+        n0 = i3d.int8_conv_acc.launches
+        probs[(str(where), dtype)] = s.score(crops, boxes, lm5, valid)
+        assert i3d.int8_conv_acc.launches - n0 == 42
+    ref = ClipScorer(sd, cfg=CFG, dtype=torch.bfloat16, device=cuda).score(crops, boxes, lm5,
+                                                                           valid)
+    cpu32, card32 = probs[("cpu", torch.float32)], probs[(str(cuda), torch.float32)]
+    np.testing.assert_allclose(card32, cpu32, atol=1e-3)
+    assert np.abs(probs[(str(cuda), torch.bfloat16)] - ref).max() < 0.05
+
+
+def _dp_rank():
+    """One rank of a two-rank job on one card (gloo carrying CUDA tensors):
+    a float32 I3D step at world 2 and the same step at world 1."""
+    import torch.distributed as dist
+
+    from stdd_torch.models.i3d import I3D
+    from stdd_torch.parallel.mesh import COLLECTIVES, DataParallel, local_rows
+    from stdd_torch.train import engine_i3d as eng
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(4, 4, 32, 32, 3).astype(np.float32)).to(dev)
+    y = torch.tensor([0.0, 1.0, 1.0, 0.0], device=dev)
+    res = {}
+    for w, dp in ((1, None), (world, DataParallel(rank, world))):
+        model = I3D(I3DConfig(num_frames=4, crop_size=32, width_per_group=16)).to(dev)
+        args = eng.I3DTrainArgs(base_lr=0.01, max_epoch=1, warmup_epochs=0.5,
+                                warmup_start_lr=0.0025, alter_freq=2, steps_per_epoch=4,
+                                grad_clip=1.0)
+        state, step, _ = eng.init_i3d_training(model, args, dp=dp)
+        xs, ys = (x, y) if dp is None else (local_rows(x, rank, w), local_rows(y, rank, w))
+        state, m = step(state, xs, ys, 0)
+        res[w] = (float(m["loss"]), {k: v.double().cpu() for k, v in model.state_dict().items()})
+    res["collectives"] = dict(COLLECTIVES)
+    res["backend"] = dist.get_backend()
+    return res
+
+
+def test_data_parallel_step_on_one_card(cuda):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device, so the job picks gloo): the float32 world-2 step is the
+    world-1 step within 1e-5."""
+    from stdd_torch.parallel.mesh import spawn
+
+    for res in spawn(_dp_rank, 2, device="cuda"):
+        assert res["backend"] == "gloo"
+        (l1, s1), (l2, s2) = res[1], res[2]
+        assert abs(l1 - l2) <= 1e-5 * max(1.0, abs(l1))
+        for k in s1:
+            if s1[k].is_floating_point():
+                err = float((s1[k] - s2[k]).abs().max()) / max(1.0, float(s1[k].abs().max()))
+                assert err <= 1e-5, k
+        assert res["collectives"]["all_reduce"] > 0
+
+
+def test_mesh_world_1_over_nccl_is_the_plain_step(cuda):
+    """``run_i3d --mesh`` on one card: world 1 over NCCL; its step (the
+    gradient all-reduced over one rank) is the plain step."""
+    import torch.distributed as dist
+
+    from stdd_torch.models.i3d import I3D
+    from stdd_torch.parallel.mesh import DataParallel, free_port, init_distributed
+    from stdd_torch.train import engine_i3d as eng
+
+    init_distributed(f"127.0.0.1:{free_port()}", 1, 0, "cuda")
+    try:
+        rng = np.random.RandomState(3)
+        x = torch.from_numpy(rng.randn(2, 4, 32, 32, 3).astype(np.float32)).to(cuda)
+        y = torch.tensor([0.0, 1.0], device=cuda)
+        out = []
+        for dp in (None, DataParallel(0, 1)):
+            model = I3D(I3DConfig(num_frames=4, crop_size=32, width_per_group=16,
+                                  dropout_rate=0.0)).to(cuda)
+            args = eng.I3DTrainArgs(base_lr=0.01, max_epoch=1, warmup_epochs=0.5,
+                                    warmup_start_lr=0.0025, alter_freq=2, steps_per_epoch=4,
+                                    grad_clip=1.0)
+            state, step, _ = eng.init_i3d_training(model, args, dp=dp)
+            state, m = step(state, x, y, 0)
+            out.append((float(m["loss"]), model.state_dict()))
+        assert dist.get_backend() == "nccl"
+    finally:
+        dist.destroy_process_group()
+    (l0, s0), (l1, s1) = out
+    assert abs(l0 - l1) <= 1e-6
+    for k in s0:
+        if s0[k].is_floating_point():
+            torch.testing.assert_close(s1[k], s0[k], rtol=1e-5, atol=1e-6)

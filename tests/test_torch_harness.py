@@ -354,11 +354,6 @@ def test_build_engine_refuses_two_checkpoints_and_a_missing_card(tmp_path, monke
         harness.build_engine(_args(tmp_path, device="cuda"))
 
 
-def test_main_refuses_int8():
-    with pytest.raises(SystemExit, match="ROADMAP.md §1 item 9"):
-        harness.main(["--video_root", ".", "--int8", "--device", "cpu"])
-
-
 def test_main_runs_a_reference_ckpt_on_the_cpu(tmp_path, variables, capsys):
     """The CLI end to end on the CPU over a list file: ``--ckpt`` in the
     reference's format, YuNet on a graph of its layout with random weights.

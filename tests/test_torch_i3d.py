@@ -160,12 +160,6 @@ def test_random_init_follows_jax_initializers(variables):
             assert abs(float(t.std()) / float(r.std()) - 1.0) < 0.1, k
 
 
-def test_unported_options_are_refused():
-    for flags in (dict(int8_stages=("s3",)), dict(fused_s2=True, int8_stages=("s4", "s5"))):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            I3D(dataclasses.replace(I3DConfig(**CFG), **flags))
-
-
 def test_i3d_fused_s2_matches_jax_fused_s2(variables, clips, torch_out):
     """``fused_s2``: each stride-1 block of s2 is one K2 call over
     BN-folded weights (its plain version on the CPU), against the JAX

@@ -2,7 +2,7 @@
 end on the CPU: one epoch on a clip tree the test writes, its outputs
 (``i3d_1.msgpack``, the sidecar, ``best.json``, the log), their use by the
 JAX package's checkpoint reader and by the port's scorer, a ``--resume``
-that keeps the best epoch of ``best.json``, and the flags it refuses.
+that keeps the best epoch of ``best.json``.
 
 The model is the trainer's I3D-R50 at 4×32², batch 2, bf16 compute (the
 default), so the test runs the path the card runs, only smaller.
@@ -136,15 +136,6 @@ def test_resume_keeps_the_best_of_best_json(run, tmp_path):
     assert {"i3d_1.msgpack", "i3d_2.msgpack"} <= set(os.listdir(resumed))
     # the optimizer's count went on from the checkpoint's: one epoch there, one here
     assert state.step > 0 and state.opt_state[-1]["count"] == state.step
-
-
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh"], "item 5"), (["--distributed"], "item 5"),
-    (["--coordinator", "localhost:1234"], "item 5"), (["--num_processes", "2"], "item 5"),
-    (["--process_id", "0"], "item 5")])
-def test_unported_flags_are_refused_by_name(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        run_i3d.main(["--data", "x", "--out", "y", *flags])
 
 
 def test_cuda_without_a_card_raises_instead_of_training_on_the_cpu(monkeypatch, tmp_path):
