@@ -245,8 +245,12 @@ exits non-zero without its result line):
               resumed by the plain trainer, the step's device time plain
               and mesh in turns; then two ranks on the card over gloo carrying CUDA
               tensors (NCCL refuses two ranks on one device): a float32
-              step at world 2 against world 1 (``DDP_WORLD_TOL``), the
-              collectives carried; and ``dryrun_multichip(2, "cuda")``, the
+              I3D step at world 2 against world 1 (``DDP_WORLD_TOL``), and
+              a dual step in float32 and in float64 at the shipped width with
+              ``DualTrainArgs``' SLERP and DAT (an invalid ``dom_id``
+              among the domains) at world 2 against world 1
+              (``DDP_DUAL_TOLS``), each with the collectives it carried and
+              its time; and ``dryrun_multichip(2, "cuda")``, the
               dry run's entry point, whose ranks pick gloo on the one card
               (K1 once a rank, the same gathered probs on both); K1 and K2
               unlaunched in training;
@@ -258,10 +262,20 @@ exits non-zero without its result line):
               convolution's int32 accumulators bit-equal to the plain
               version, its time beside the bf16 cuDNN convolution; the app
               with the int8 scorer over 120 frames of a 720p scene.
+40. slice16 — the scorer's reference-quantization mode
+              (``round_aligned_u8``, ``score_index=0``) at full width
+              (I3D-R50, 32×224², bf16 and float32, I420) at B = 2 and 8:
+              the I3D's input integers in [0, 255], the float32 probs
+              through K1 equal to those through the plain warp, bf16
+              within ``TOLS``' bf16 bound, |Δp| against the unrounded
+              scorer, K1 once a batch, ms a batch with and without the
+              rounding in turns; one ``fused_s2`` batch with it (K2 3, K1
+              1); a two-class head scored on ``score_index=1``, float32,
+              card against CPU (8×64²).
 
 The K2 phases (10) run before the scorer (4) in the script, as they did,
 the evaluation phases (21-25) before training (13), and phases 26-29, then
-30-34, then 35-37, then 38-39, last.
+30-34, then 35-37, then 38-39, then 40, last.
 Every measurement is printed as one JSON object per line; then the
 ``{"kernels": [...]}`` line (with each kernel's launches on every path that
 counted them), the nvidia-smi line, and last
@@ -1817,25 +1831,25 @@ def dual_batch(data: dict, idx, dev) -> dict:
             "dom_id": torch.from_numpy(data["dom_id"][idx]).to(dev)}
 
 
-def dual_setup(dev, n_domains: int, dropout: float = 0.15):
+def dual_setup(dev, n_domains: int, dropout: float = 0.15, dp=None, dtype=torch.float32):
     """The shipped model (run_dual's defaults: d_model 256, 4 layers, 4
-    heads, DAT) on ``dev``, its AdamW chain over a 3-epoch one-cycle of 8
-    steps an epoch, and the step; → (model, state, step, trains-everything
-    mask)."""
+    heads, DAT) on ``dev`` in ``dtype``, its AdamW chain over a 3-epoch
+    one-cycle of 8 steps an epoch, and the step (data-parallel over
+    ``dp``); → (model, state, step, trains-everything mask)."""
     from stdd_torch.models.dual_encoder import DualEncoderAU_LMK
     from stdd_torch.train import engine_dual as eng
     from stdd_torch.train.altfreeze import active_mask_from_labels, dual_labels
     from stdd_torch.train.step import TrainState
 
     model = DualEncoderAU_LMK(dropout=dropout, use_dat=True, domain_classes=n_domains,
-                              seed=SEED).to(dev)
+                              seed=SEED).to(dev, dtype)
     args = eng.DualTrainArgs(epochs=DUAL_EPOCHS, batch=DUAL_BATCH)
     tx = eng.make_dual_optimizer(args, eng.make_schedule(
         args, DUAL_EPOCH_SAMPLES // DUAL_BATCH))
     params = dict(model.named_parameters())
     state = TrainState(params, {}, tx.init(params), 0)
     mask = active_mask_from_labels(dual_labels(params), ("au", "lmk", "other"))
-    return model, state, eng.make_dual_train_step(model, tx, args), mask
+    return model, state, eng.make_dual_train_step(model, tx, args, dp=dp), mask
 
 
 def dual_f32_card_vs_cpu(dev, data: dict, n_domains: int) -> dict:
@@ -4013,6 +4027,26 @@ DDP_LOSS_TOL = 1e-3
 DDP_WORLD_TOL = 1e-5
 DDP_TIMED_STEPS = 10
 DDP_PAIR_CFG = dict(num_frames=4, crop_size=32, width_per_group=16)      # reduced width
+# the dual pair: a step at world 2 against world 1 on the card, TF32 off
+# (each rank's encoders run half the batch: GEMMs of other shapes may sum in
+# another order). Parts over max(1, |world 1|); Adam's moments after the
+# step (mu the clipped gradients' trace, nu their squares) over their
+# largest entry; the parameters over max(1, |world 1|). In float64 all
+# within 1e-10, the CPU test's WORLD_TOL (≤ 4.4e-14 on an H100): there a
+# gradient that is zero but for rounding lies far under Adam's eps, so the
+# parameters show an update left out, of the wrong sign or wrongly masked.
+# In float32 the parts within 1e-5 (1.6e-6 at most on an H100, the grad
+# norm); the moments within DUAL_F32_TOLS' 1e-4 and 2e-4 (8.5e-6 and 1.5e-5
+# on an H100: the gradients cancel, so a float32 sum in another order moves
+# the largest of them by about 70 of float32's eps); the parameters within
+# DUAL_F32_TOLS' 2.5e-5 (5.0e-6 on an H100): a first Adam step moves each by
+# up to the one-cycle's first LR (1.2e-5) whatever its gradient's size, so a
+# gradient that is zero but for rounding may step either way.
+DDP_DUAL_TOLS = {"float32": {"parts": 1e-5, **{k: DUAL_F32_TOLS[k] for k in ("mu", "nu", "params")}},
+                 "float64": {"parts": 1e-10, "mu": 1e-10, "nu": 1e-10, "params": 1e-10}}
+DDP_DUAL_BATCH = 16          # the global batch, 8 a rank
+DDP_DUAL_T = 8               # run_dual's --T
+DDP_DUAL_DOMAINS = 5         # the dual phase's tree: a real class and four techniques
 INT8_BATCHES = (2, 8)
 INT8_TIMED = 10              # scored batches timed a configuration and round
 # float32 int8 probs, card vs CPU (8×64²): a float32 sum in another order can
@@ -4063,7 +4097,75 @@ def _ddp_pair(device: str) -> dict:
                   "state": {k: v.double().cpu() for k, v in model.state_dict().items()}}
     res["collectives_step"] = dict(COLLECTIVES)
     res["backend"] = dist.get_backend()
+    res["dual"] = _ddp_dual_pair(dev, rank, world)
     return res
+
+
+def _ddp_dual_pair(dev, rank: int, world: int) -> dict:
+    """A step of the shipped dual model (``dual_setup``: run_dual's
+    defaults, dropout on) with ``DualTrainArgs``' SLERP and DAT at λ 0.1,
+    at world 1 and at ``world`` from the same weights, global batch and
+    seed, each timed after an untimed step of its own, in float32 and in
+    float64; ``dom_id`` holds an invalid id. → {dtype: {world: its
+    seconds, parts, parameters, Adam's moments and collectives}}."""
+    from stdd_torch.parallel.mesh import COLLECTIVES, DataParallel, local_rows
+
+    rng = np.random.RandomState(SEED + 71)
+    B = DDP_DUAL_BATCH
+    y = (np.arange(B) % 2).astype(np.float32)
+    dom_id = (y * (1 + np.arange(B) % (DDP_DUAL_DOMAINS - 1))).astype(np.int64)
+    dom_id[3] = -1
+    T = DDP_DUAL_T
+    data = {"A": rng.randn(B, T, 36).astype(np.float32),
+            "L": rng.randn(B, T, 132).astype(np.float32), "y": y,
+            "lengths": np.where(np.arange(B) % 5 == 0, T // 2, T).astype(np.int64),
+            "dom_id": dom_id}
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        out[str(dtype)[6:]] = res = {}
+        for w, dp in ((1, None), (world, DataParallel(rank, world))):
+            batch = {k: v.to(dtype) if v.is_floating_point() else v
+                     for k, v in dual_batch(data, np.arange(B), dev).items()}
+            if dp is not None:
+                batch = local_rows(batch, rank, w)
+            _, state, step, mask = dual_setup(dev, DDP_DUAL_DOMAINS, dp=dp, dtype=dtype)
+            step(state, batch, mask, 0.1, SEED)             # warm-up: cuBLAS's set-up
+            _, state, step, mask = dual_setup(dev, DDP_DUAL_DOMAINS, dp=dp, dtype=dtype)
+            COLLECTIVES.clear()
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch, mask, 0.1, SEED)
+            _sync(dev)
+            adam = state.opt_state[1][0]
+            res[w] = {"seconds": time.perf_counter() - t0,
+                      "parts": {k: float(v) for k, v in m.items()},
+                      "params": {k: v.detach().double().cpu() for k, v in state.params.items()},
+                      "adam": {f: {k: v.double().cpu() for k, v in adam[f].items()}
+                               for f in ("mu", "nu")},
+                      "collectives": dict(COLLECTIVES)}
+    return out
+
+
+def state_err(a: dict, b: dict) -> float:
+    """max |a - b| over max(1, max |b|), the worst tensor of a state dict."""
+    return max(float((a[k] - b[k]).abs().max()) / max(1.0, float(b[k].abs().max()))
+               for k in b if b[k].is_floating_point())
+
+
+def dual_pair_err(duals: list) -> tuple:
+    """The dual pair's world 2 against world 1 in one dtype, over both
+    ranks: each part over max(1, |world 1|), the parameters (``state_err``),
+    Adam's ``mu`` and ``nu`` as their worst entry over their largest; →
+    (errors, the ranks' parameters apart)."""
+    err = {k: max(abs(d[2]["parts"][k] - v) / max(1.0, abs(v)) for d in duals)
+           for k, v in duals[0][1]["parts"].items()}
+    err["params"] = max(state_err(d[2]["params"], d[1]["params"]) for d in duals)
+    for f in ("mu", "nu"):
+        err[f] = max(max(float((d[2]["adam"][f][k] - v).abs().max())
+                         for k, v in d[1]["adam"][f].items())
+                     / max(float(v.abs().max()) for v in d[1]["adam"][f].values())
+                     for d in duals)
+    return err, state_err(duals[0][2]["params"], duals[1][2]["params"])
 
 
 def phase_ddp(dev, smi: str, tmp_dir: str) -> dict:
@@ -4142,13 +4244,14 @@ def phase_ddp(dev, smi: str, tmp_dir: str) -> dict:
     dry = dryrun_multichip(2, dev.type)
     dry_s = time.perf_counter() - t0
 
-    def state_err(a, b):
-        return max(float((a[k] - b[k]).abs().max()) / max(1.0, float(b[k].abs().max()))
-                   for k in b if b[k].is_floating_point())
-
     world_err = max(max(abs(p[2]["loss"] - p[1]["loss"]) / max(1.0, abs(p[1]["loss"])),
                         state_err(p[2]["state"], p[1]["state"])) for p in pair)
     ranks_apart = state_err(pair[0][2]["state"], pair[1][2]["state"])
+    dtypes = ("float32", "float64")
+    duals = {dt: [p["dual"][dt] for p in pair] for dt in dtypes}
+    dual_err, dual_apart = {}, {}
+    for dt in dtypes:
+        dual_err[dt], dual_apart[dt] = dual_pair_err(duals[dt])
     loss_rel = abs(runs["mesh"]["epoch_loss"][0] - runs["plain"]["epoch_loss"][0]) / max(
         1.0, abs(runs["plain"]["epoch_loss"][0]))
     r = {"phase": "ddp", "card": smi, "model": "I3D-R50", "clip": TRAIN_T, "crop": TRAIN_S,
@@ -4165,11 +4268,22 @@ def phase_ddp(dev, smi: str, tmp_dir: str) -> dict:
                   "world2_vs_world1": world_err, "ranks_apart": ranks_apart,
                   "step_s": {w: [p[w]["seconds"] for p in pair] for w in (1, 2)},
                   "collectives_step": pair[0]["collectives_step"]},
+         "pair_dual": {"model": "DualEncoderAU_LMK, run_dual's defaults (d_model 256, 4 layers, "
+                                "dropout 0.15), DAT over 5 domains",
+                       "args": "DualTrainArgs() (slerp, dat), dat_lambda 0.1",
+                       "global_batch": DDP_DUAL_BATCH, "T": DDP_DUAL_T,
+                       "dtype": "float32, TF32 off", "world": 2,
+                       "parts_world1": {dt: duals[dt][0][1]["parts"] for dt in dtypes},
+                       "world2_vs_world1": dual_err, "ranks_apart": dual_apart,
+                       "step_s_warm_float32": {w: [d[w]["seconds"] for d in duals["float32"]]
+                                               for w in (1, 2)},
+                       "collectives_step": duals["float32"][0][2]["collectives"]},
          "dryrun": {"ranks": 2, "seconds_with_spawn": dry_s,
                     "per_rank": [{"i3d_loss": d["i3d_loss"], "dual_loss": d["dual_loss"],
                                   "probs": d["probs"].tolist(), "launches": d["launches"]}
                                  for d in dry]},
-         "tol": {"mesh_vs_plain_epoch_loss_rel": DDP_LOSS_TOL, "world2_vs_world1": DDP_WORLD_TOL},
+         "tol": {"mesh_vs_plain_epoch_loss_rel": DDP_LOSS_TOL, "world2_vs_world1": DDP_WORLD_TOL,
+                 "dual_world2_vs_world1": DDP_DUAL_TOLS},
          "k1_launches": launches["warp_affine"], "k2_launches": launches["fused_bottleneck"]}
     emit(r)
     if not (runs["mesh"]["steps"] == runs["plain"]["steps"] > 0
@@ -4186,6 +4300,16 @@ def phase_ddp(dev, smi: str, tmp_dir: str) -> dict:
     if not (world_err <= DDP_WORLD_TOL and ranks_apart == 0.0
             and [p["backend"] for p in pair] == ["gloo", "gloo"]):
         raise AssertionError(f"ddp: world 2 vs 1 {world_err}, ranks apart {ranks_apart}")
+    after_step = ("params", "mu", "nu")
+    for dt in dtypes:
+        parts, err, tol = duals[dt][0][2]["parts"], dual_err[dt], DDP_DUAL_TOLS[dt]
+        if "dat" not in parts:
+            raise AssertionError(f"ddp: the {dt} dual step ran without DAT: {parts}")
+        if not (max(v for k, v in err.items() if k not in after_step) <= tol["parts"]
+                and all(err[k] <= tol[k] for k in after_step) and dual_apart[dt] == 0.0
+                and np.isfinite(list(parts.values())).all()):
+            raise AssertionError(f"ddp: {dt} dual world 2 vs 1 {err}, "
+                                 f"ranks apart {dual_apart[dt]}")
     for d in dry:
         if not (np.isfinite([d["i3d_loss"], d["dual_loss"]]).all()
                 and np.isfinite(d["probs"]).all()
@@ -4357,13 +4481,211 @@ def phase_slice15(dev, smi: str) -> dict:
     """Phases 38-39 (ddp, int8); → {kernel: {phase: launches}} (counted from zero just
     before each path and read just after)."""
     launches = {"warp_affine": {}, "fused_bottleneck": {}}
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp_dir:
         ddp = phase_ddp(dev, smi, tmp_dir)
+    emit({"phase": "ddp_wall", "seconds": time.perf_counter() - t0})
     for k in launches:
         launches[k]["ddp"] = ddp[k]
     q8 = phase_int8(dev, smi)
     for k in launches:
         launches[k].update(q8[k])
+    return launches
+
+
+# -- phase 40: the scorer's reference-quantization mode --------------------------
+SLICE16_BATCHES = (2, 8)
+SLICE16_TIMED = 5            # scored batches timed a configuration and round (two rounds)
+# float32 probs of a two-class head scored on its second logit, card vs CPU
+# (8×64²): float32 sums in another order (FTCN_SERVE_TOL's bound)
+SLICE16_F32_TOL = 1e-4
+# the I3D's input de-normalized: K1's aligned clip, clamped to [0, 255] and
+# rounded half to even (torch.round, as jnp.round), element by element, to
+# within float32 rounding of (p - mean) / std · std + mean (255 · 2⁻²³ ≈
+# 3e-5); the check sees a wrong rounding only where K1's values lie away from
+# an integer, so some must lie more than 0.25 from one
+SLICE16_PIXEL_TOL = 1e-3
+
+
+def model_inputs(scorer, fn):
+    """``fn()``'s result, the pixel values each of the scorer's I3D forwards
+    received (its input de-normalized) and K1's aligned clip each forward
+    came from, on the scorer's device."""
+    seen, aligned = [], []
+    align = scorer._align_batch
+
+    def kept(*a, **kw):
+        out = align(*a, **kw)
+        aligned.append(out.detach())
+        return out
+
+    hook = scorer.model.register_forward_pre_hook(lambda m, a: seen.append(a[0].detach()))
+    scorer._align_batch = kept
+    try:
+        out = fn()
+    finally:
+        hook.remove()
+        del scorer._align_batch
+    return out, [x * scorer._std + scorer._mean for x in seen], aligned
+
+
+def phase_slice16(dev, smi: str) -> dict:
+    """Phase 40: ``round_aligned_u8`` at full width (I3D-R50, 32×224², I420
+    ring windows, bf16 and float32) at B = 2 and 8, through K1 and through
+    its plain version; ms a batch with and without the rounding (bf16, in
+    turns); one ``fused_s2`` batch with it; a two-class head on
+    ``score_index=1`` card vs CPU. → {kernel: {path: launches}}."""
+    cfg = I3DConfig()
+    T, S = cfg.num_frames, 256
+    base = ClipScorer.random_init(cfg, seed=SEED, device="cpu", dtype=torch.float32)
+    randomize_bn(base.model, SEED)
+    sd = base.model.state_dict()
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+    def scorer(dt, rounded, c=cfg):
+        return ClipScorer(sd, cfg=c, dtype=dtypes[dt], score_index=0, round_aligned_u8=rounded,
+                          upload_format="yuv420", device=dev)
+
+    sc = {(dt, r): scorer(dt, r) for dt in dtypes for r in (True, False)}
+    rng = np.random.RandomState(SEED + 90)
+    launches = {"warp_affine": {}, "fused_bottleneck": {}}
+    per_b = {}
+    for B in SLICE16_BATCHES:
+        ws = [torch.from_numpy(w).to(dev) for w in clip_windows(rng, B, T, S)]
+        geo = [clip_geometry(rng, T) for _ in range(B)]
+        boxes, lm5, scale = (np.stack([g[i] for g in geo]) for i in range(3))
+        valid = np.ones((B,), bool)
+
+        def run(s):
+            return np.asarray(s.score_windows(ws, boxes, lm5, scale, valid))
+
+        probs, pixels = {}, {}
+        for (dt, r), s in sc.items():                       # also the warm-up
+            probs[(dt, r)], px, al = model_inputs(s, lambda: run(s))
+            x, a = px[0], al[0]
+            if r:
+                pixels[dt] = {"max_from_integer": float((x - x.round()).abs().max()),
+                              "min": float(x.min()), "max": float(x.max()),
+                              "vs_k1_rounded": float((x - torch.round(torch.clamp(a, 0, 255)))
+                                                     .abs().max()),
+                              "k1_max_from_integer": float((a - a.round()).abs().max()),
+                              "k1_share_over_quarter_from_integer": float(
+                                  ((a - a.round()).abs() > 0.25).float().mean())}
+            else:
+                pixels[f"{dt}_unrounded_vs_k1"] = float((x - a).abs().max())
+        plain = {}
+        for dt in dtypes:                                   # the plain warp in K1's place
+            s = sc[(dt, True)]
+            plain[dt] = s._score_impl(
+                torch.stack(ws), s._to_device(boxes, torch.float32),
+                s._to_device(lm5, torch.float32), s._to_device(valid, torch.bool),
+                scale=s._to_device(scale, torch.float32),
+                warp=warp_affine_reference).cpu().numpy()
+        ms = {"rounded": [], "unrounded": []}
+        k1 = k2 = 0
+        for order in (("rounded", "unrounded"), ("unrounded", "rounded")):
+            for k in order:
+                s = sc[("bf16", k == "rounded")]
+                torch.cuda.synchronize()
+                warp_affine.launches = fused_bottleneck.launches = 0
+                for _ in range(SLICE16_TIMED):
+                    t0 = time.perf_counter()
+                    run(s)
+                    ms[k].append((time.perf_counter() - t0) * 1000)
+                if k == "rounded":
+                    k1 += warp_affine.launches
+                    k2 += fused_bottleneck.launches
+        launches["warp_affine"][f"slice16_b{B}"] = k1
+        launches["fused_bottleneck"][f"slice16_b{B}"] = k2
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        per_b[B] = {
+            "ms_per_batch_median": med,
+            "ms_per_batch_p90": {k: float(np.percentile(v, 90)) for k, v in ms.items()},
+            "rounding_ms_per_batch": med["rounded"] - med["unrounded"],
+            "pixels_rounded": pixels,
+            "probs_rounded": {dt: probs[(dt, True)].tolist() for dt in dtypes},
+            "dp_rounded_vs_unrounded": {dt: float(np.abs(probs[(dt, True)]
+                                                         - probs[(dt, False)]).max())
+                                        for dt in dtypes},
+            "dp_k1_vs_plain_warp": {dt: float(np.abs(probs[(dt, True)] - plain[dt]).max())
+                                    for dt in dtypes},
+            "f32_k1_equals_plain_warp": bool(np.array_equal(probs[("f32", True)],
+                                                            plain["f32"])),
+            "dp_bf16_vs_f32_rounded": float(np.abs(probs[("bf16", True)]
+                                                   - probs[("f32", True)]).max()),
+            "k1_launches": k1, "k2_launches": k2, "batches": 2 * SLICE16_TIMED}
+        del ws
+
+    # fused_s2 with the rounding: K2 on s2's three blocks, K1 once
+    fz = scorer("bf16", True, dataclasses.replace(cfg, fused_s2=True))
+    B = 8
+    ws = [torch.from_numpy(w).to(dev) for w in clip_windows(rng, B, T, S)]
+    geo = [clip_geometry(rng, T) for _ in range(B)]
+    boxes, lm5, scale = (np.stack([g[i] for g in geo]) for i in range(3))
+    valid = np.ones((B,), bool)
+    p32 = np.asarray(sc[("f32", True)].score_windows(ws, boxes, lm5, scale, valid))
+    np.asarray(fz.score_windows(ws, boxes, lm5, scale, valid))              # warm-up
+    torch.cuda.synchronize()
+    warp_affine.launches = fused_bottleneck.launches = 0
+    t0 = time.perf_counter()
+    pf = np.asarray(fz.score_windows(ws, boxes, lm5, scale, valid))
+    fused_ms = (time.perf_counter() - t0) * 1000
+    launches["warp_affine"]["slice16_fused"] = warp_affine.launches
+    launches["fused_bottleneck"]["slice16_fused"] = fused_bottleneck.launches
+    del fz, ws, sc
+
+    # a two-class head scored on its second logit, float32, card vs CPU
+    small = I3DConfig(num_frames=8, crop_size=64, num_classes=2)
+    sd2 = ClipScorer.random_init(small, seed=SEED, device="cpu").model.state_dict()
+    c = np.random.RandomState(SEED + 91)
+    crops = c.randint(0, 255, (2, 8, 96, 96, 3)).astype(np.uint8)
+    sboxes = np.tile(np.array([5, 5, 90, 90], np.float32), (2, 8, 1))
+    slm5 = np.tile((STD_POINTS_256 * 0.3 + 10).astype(np.float32), (2, 8, 1, 1))
+    two = {str(w): ClipScorer(sd2, cfg=small, dtype=torch.float32, device=w,
+                              score_index=1).score_with_features(crops, sboxes, slm5,
+                                                                 np.ones(2, bool))
+           for w in ("cpu", dev)}
+    p_card, logits_card, _ = two[str(dev)]
+    two_dp = float(np.abs(p_card - two["cpu"][0]).max())
+    second = float(np.abs(p_card - 1 / (1 + np.exp(-logits_card[:, 1]))).max())
+
+    r = {"phase": "slice16", "card": smi, "model": "I3D-R50", "clip": T, "crop": cfg.crop_size,
+         "upload": "yuv420", "round_aligned_u8": True, "score_index": 0,
+         "by_batch": {str(b): v for b, v in per_b.items()},
+         "fused_s2_rounded": {"B": 8, "ms_one_batch": fused_ms,
+                              "k1_launches": launches["warp_affine"]["slice16_fused"],
+                              "k2_launches": launches["fused_bottleneck"]["slice16_fused"],
+                              "dp_vs_f32_unfused": float(np.abs(pf - p32).max())},
+         "two_class": {"cfg": "I3D-R50, 8×64², 2 classes", "score_index": 1,
+                       "f32_card_vs_cpu_dp": two_dp, "probs_card": p_card.tolist(),
+                       "logits_card": logits_card.tolist(), "probs_vs_sigmoid_logit1": second},
+         "tol": {"bf16_vs_f32_dp": TOLS["bf16_vs_f32_dp"], "pixel": SLICE16_PIXEL_TOL,
+                 "two_class_f32_card_vs_cpu_dp": SLICE16_F32_TOL}}
+    emit(r)
+    for B, v in per_b.items():
+        for dt in dtypes:
+            px = v["pixels_rounded"][dt]
+            if not (px["max_from_integer"] <= SLICE16_PIXEL_TOL
+                    and px["min"] >= -SLICE16_PIXEL_TOL and px["max"] <= 255 + SLICE16_PIXEL_TOL
+                    and px["vs_k1_rounded"] <= SLICE16_PIXEL_TOL
+                    and px["k1_max_from_integer"] > 0.25
+                    and v["pixels_rounded"][f"{dt}_unrounded_vs_k1"] <= SLICE16_PIXEL_TOL):
+                raise AssertionError(f"slice16 B={B} {dt}: the I3D's input is not K1's clip "
+                                     f"rounded half to even: {v['pixels_rounded']}")
+        p = np.array(v["probs_rounded"]["bf16"])
+        if not (np.isfinite(p).all() and v["f32_k1_equals_plain_warp"]
+                and v["dp_k1_vs_plain_warp"]["bf16"] <= TOLS["bf16_vs_f32_dp"]
+                and v["dp_bf16_vs_f32_rounded"] <= TOLS["bf16_vs_f32_dp"]):
+            raise AssertionError(f"slice16 B={B}: probs {v}")
+        if not (v["k1_launches"] == v["batches"] and v["k2_launches"] == 0):
+            raise AssertionError(f"slice16 B={B}: K1 {v['k1_launches']}, K2 {v['k2_launches']} "
+                                 f"for {v['batches']} batches")
+    if not (launches["fused_bottleneck"]["slice16_fused"] == 3
+            and launches["warp_affine"]["slice16_fused"] == 1
+            and float(np.abs(pf - p32).max()) <= FUSED_TOLS["bf16_vs_f32_dp"]):
+        raise AssertionError(f"slice16: fused_s2 {launches}, |Δp| {np.abs(pf - p32).max()}")
+    if not (two_dp <= SLICE16_F32_TOL and second <= 1e-6):
+        raise AssertionError(f"slice16: two-class |Δp| {two_dp}, vs sigmoid(logit 1) {second}")
     return launches
 
 
@@ -4470,6 +4792,11 @@ def main() -> None:
     t0 = time.perf_counter()
     slice_launches = phase_slice15(dev, smi)
     emit({"phase": "slice15_wall", "seconds": time.perf_counter() - t0})
+    for k in by_phase:
+        by_phase[k].update(slice_launches[k])
+    t0 = time.perf_counter()
+    slice_launches = phase_slice16(dev, smi)
+    emit({"phase": "slice16_wall", "seconds": time.perf_counter() - t0})
     for k in by_phase:
         by_phase[k].update(slice_launches[k])
 

@@ -278,10 +278,11 @@ def _rank_main(rank: int, fn: Callable, world: int, port: int, device: str,
         pickle.dump(result, f)
 
 
-def spawn(fn: Callable, world: int, args: tuple = (), device: str = "cpu") -> list:
+def spawn(fn: Callable, world: int, args: tuple = (), device: str = "cuda") -> list:
     """Run ``fn(*args)`` in ``world`` new processes, each a rank of one job
     on localhost (``fn`` must be importable: the processes are spawned),
-    sharing this process's torch threads. Returns what ``fn`` returned on
+    sharing this process's torch threads; the job joins on ``device`` (the
+    card unless the caller asks for the CPU). Returns what ``fn`` returned on
     each rank (picklable, in rank order); raises if any rank fails."""
     import tempfile
 

@@ -17,9 +17,16 @@ ignored. With ``I3DConfig(fused_s2=True)`` the s2 blocks run K2
 composes with ``fused_s2`` (K2 keeps s2), ``temporal_only`` (the stages
 that exist) and both upload formats. The JAX loader builds that I3D and
 not the FTCN, so it refuses the checkpoint ``run_i3d --ftcn`` writes (it
-does not cover the model); so does this one. The JAX scorer's ``round_aligned_u8`` and
-``score_index`` options (no caller sets them) are not ported; the score is
-the sigmoid of the first logit.
+does not cover the model); so does this one.
+
+With ``round_aligned_u8`` the aligned clip is rounded to uint8 values
+(half to even, as ``jnp.round``) between K1 and the normalize on every
+path, as the reference's ``cv2.warpAffine`` on a uint8 canvas quantizes
+it; the score is the sigmoid of logit ``score_index``, which must lie in
+``[-C, C)`` (JAX's indexing clamps an index outside it silently; this one
+raises). The JAX scorer's ``use_pallas_warp``, ``warp_band`` and
+``s2d_stem`` have no counterpart: K1 serves every clip, and the I3D
+computes the plain stem convolution (``models/i3d.py``).
 """
 
 from __future__ import annotations
@@ -146,17 +153,25 @@ class ClipScorer:
       boxes [B, T, 4] absolute big-box (x1, y1, x2, y2)
       lm5   [B, T, 5, 2] crop-local 5-point landmarks
       valid [B] bool — padding rows are scored but masked to 0
-    → probs [B] float32 (sigmoid of the first logit).
+    → probs [B] float32 (sigmoid of logit ``score_index``).
 
     The model computes in ``dtype`` (bf16 by default) over float32
     parameters, on ``device`` ("cuda" unless the caller asks for "cpu").
-    ``int8``: the eval-only int8 convolutions for s3-s5 when ``cfg`` names
-    no ``int8_stages`` (scores shift by the quantization error)."""
+    ``round_aligned_u8``: round the aligned pixels to uint8 values before
+    the normalize (the reference's quantization). ``int8``: the eval-only
+    int8 convolutions for s3-s5 when ``cfg`` names no ``int8_stages``
+    (scores shift by the quantization error)."""
 
     def __init__(self, state_dict, cfg: Optional[I3DConfig] = None,
-                 dtype: torch.dtype = torch.bfloat16, upload_format: str = "rgb",
+                 dtype: torch.dtype = torch.bfloat16, score_index: int = 0,
+                 round_aligned_u8: bool = False, upload_format: str = "rgb",
                  device="cuda", int8: bool = False):
         self.cfg = cfg or I3DConfig()
+        if not -self.cfg.num_classes <= score_index < self.cfg.num_classes:
+            raise ValueError(f"score_index {score_index} is out of range for "
+                             f"{self.cfg.num_classes} classes")
+        self.score_index = score_index
+        self.round_aligned_u8 = round_aligned_u8
         if int8 and not self.cfg.int8_stages:
             self.cfg = dataclasses.replace(self.cfg, int8_stages=("s3", "s4", "s5"))
         if upload_format not in ("rgb", "yuv420"):
@@ -283,9 +298,11 @@ class ClipScorer:
                 raise ValueError(
                     f"upload_format='rgb' expects crops [B,T,H,W,3]; got shape {tuple(crops.shape)}")
             aligned = self._align_batch(crops, boxes.float(), lm5.float(), scale, warp)
+            if self.round_aligned_u8:
+                aligned = torch.round(torch.clamp(aligned, 0, 255))
             x = (aligned - self._mean) / self._std
             logits, feats = self.model(x, return_features=True, bottleneck=bottleneck)
-            probs = torch.where(valid, torch.sigmoid(logits[:, 0].float()), 0.0)
+            probs = torch.where(valid, torch.sigmoid(logits[:, self.score_index].float()), 0.0)
             if with_features:
                 return probs, logits.float(), feats
             return probs

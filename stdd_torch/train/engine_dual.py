@@ -36,8 +36,13 @@ batch's labels, lengths and groups) and computes the loss on the global
 batch, as GSPMD does in JAX: alignment, uniformity and the temporal InfoNCE
 are pairwise over it, ``aux_pred`` is a ratio of sums, the ``train_agg``
 groups span it. The gradients are averaged over the ranks before the
-update, which is then the single-process one. SLERP's in-batch partners
-and DAT are refused at world > 1 (ROADMAP.md §1 item 5).
+update, which is then the single-process one. SLERP's partners and ``t``
+are drawn over the gathered labels from the step's generator, which stands
+in the same state on every rank (the encoders' dropout draws the global
+batch's mask on each, ``parallel/mesh.py::global_rand``), so every rank
+draws what a single process would; injected ``draws`` are the global
+batch's. DAT's cross-entropy reads the gathered ``dom_id``, and its
+reversed gradient reaches each rank's rows through the gather's adjoint.
 """
 
 from __future__ import annotations
@@ -312,12 +317,7 @@ def make_dual_train_step(model: DualEncoderAU_LMK, tx: GradientTransformation,
     ``(seed, state.step)``. ``parts`` are the loss terms, ``acc`` and the
     unmasked gradients' ``grad_norm``, as tensors on the device. With
     ``dp``, ``batch`` holds this rank's rows and the step is data-parallel
-    (module docstring); ``parts`` are the global batch's."""
-    if dp is not None and dp.world > 1:
-        for flag in ("slerp", "dat"):
-            if getattr(args, flag):
-                raise ValueError(f"{flag}=True is not ported to data-parallel training "
-                                 "(world > 1; ROADMAP.md §1 item 5)")
+    (module docstring); ``draws`` and ``parts`` are the global batch's."""
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
 

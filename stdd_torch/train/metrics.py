@@ -14,10 +14,8 @@ scikit-learn, which the card's machine lacks:
   descending stable order, one point per distinct score, collinear points
   dropped by the second difference of both counts, the ``(0, 0, inf)``
   point prepended), which :func:`threshold_from_roc` picks from;
-- :func:`fit_temperature` with scipy's bounded scalar minimiser, as JAX's.
-
-The top-k helpers of that module (:181-207), which neither trainer calls,
-are not ported.
+- :func:`fit_temperature` with scipy's bounded scalar minimiser, as JAX's;
+- the top-k helpers (:181-207) with the same stable descending order.
 """
 
 from __future__ import annotations
@@ -216,6 +214,31 @@ def agg_person_median(logits: np.ndarray, y: np.ndarray, trk: np.ndarray):
     y_s = np.asarray(y)[order]
     y_person = np.array([float(c.mean() >= 0.5) for c in np.split(y_s, starts[1:])])
     return meds, y_person
+
+
+def topks_correct(preds: np.ndarray, labels: np.ndarray, ks):
+    """Number of top-k-correct predictions per k (reference
+    slowfast/utils/metrics.py:9): ``preds`` [N, C] scores, ``labels`` [N]
+    class indices; tied scores keep their class order."""
+    preds = np.asarray(preds)
+    labels = np.asarray(labels).reshape(-1)
+    if preds.shape[0] != labels.shape[0]:
+        raise ValueError("Batch dim of predictions and labels must match")
+    top_inds = np.argsort(-preds, axis=1, kind="stable")[:, :max(ks)]
+    correct = top_inds == labels[:, None]
+    return [float(correct[:, :k].sum()) for k in ks]
+
+
+def topk_accuracies(preds, labels, ks):
+    """Top-k accuracy (%) per k (reference metrics.py:58)."""
+    n = np.asarray(preds).shape[0]
+    return [c / n * 100.0 for c in topks_correct(preds, labels, ks)]
+
+
+def topk_errors(preds, labels, ks):
+    """Top-k error (%) per k (reference metrics.py:46)."""
+    n = np.asarray(preds).shape[0]
+    return [(1.0 - c / n) * 100.0 for c in topks_correct(preds, labels, ks)]
 
 
 def agg_video_noisyor(logits: np.ndarray, y: np.ndarray, trk: np.ndarray, vid: np.ndarray):

@@ -2,8 +2,10 @@
 scorer (unfused and ``fused_s2``, packed and dense, temporal-only) on the
 card against the same scorer on the CPU, the device-resident ring path
 (pushes and gathers on a side CUDA stream) against the host-packed path,
-the data production models, the evaluation harness's ``run_video`` and a
-reference-format checkpoint on the card against the CPU, the FTCN's
+the reference-quantization mode (``round_aligned_u8``) through K1 and
+``score_index``, the data production models, the evaluation harness's
+``run_video`` and a reference-format checkpoint on the card against the
+CPU, the FTCN's
 forward and train step on the card against the CPU, the int8 convolutions
 (the int32 GEMM on the card against its plain version, the int8 scorer
 against the CPU's) and a data-parallel step on the card (world 1 over NCCL,
@@ -504,6 +506,50 @@ def test_temporal_only_scorer_uses_k1_and_matches_the_plain_warp(cuda):
                             warp=warp_affine_reference).cpu().numpy()
     np.testing.assert_array_equal(got, plain)
     assert np.abs(got - cpu.score(crops, boxes, lm5, valid)).max() <= 1e-4
+
+
+def _rotated_batch(rng, B, T, S, fmt="rgb"):
+    shape = (B, T, S * 3 // 2, S) if fmt == "yuv420" else (B, T, S, S, 3)
+    crops = rng.randint(0, 256, shape, np.uint8)
+    boxes = np.tile(np.array([100, 80, 100 + S, 80 + S], np.float32), (B, T, 1))
+    lm5 = np.tile((STD_POINTS_256 * 0.3 + 10).astype(np.float32), (B, T, 1, 1))
+    return crops, boxes, lm5 + rng.normal(0, 1.5, lm5.shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("fmt", ["rgb", "yuv420"])
+def test_rounded_scorer_through_k1_matches_the_plain_warp(cuda, fmt):
+    """``round_aligned_u8`` on the card: K1 once a batch, the probs equal
+    to the same scorer's through K1's plain version (K1 is bit-exact, so
+    the rounding sees the same values) and within 1e-4 of the CPU's."""
+    cfg = I3DConfig(num_frames=8, crop_size=64)
+    gpu = ClipScorer.random_init(cfg, seed=5, dtype=torch.float32, upload_format=fmt,
+                                 device=cuda, round_aligned_u8=True)
+    cpu = ClipScorer(gpu.model.state_dict(), cfg=cfg, dtype=torch.float32, upload_format=fmt,
+                     device="cpu", round_aligned_u8=True)
+    crops, boxes, lm5 = _rotated_batch(np.random.RandomState(6), 2, 8, 96, fmt)
+    valid = np.array([True, True])
+    k1 = warp_affine.launches
+    got = gpu.score(crops, boxes, lm5, valid)
+    assert warp_affine.launches == k1 + 1
+    plain = gpu._score_impl(gpu._to_device(crops), gpu._to_device(boxes, torch.float32),
+                            gpu._to_device(lm5, torch.float32), gpu._to_device(valid, torch.bool),
+                            warp=warp_affine_reference).cpu().numpy()
+    np.testing.assert_array_equal(got, plain)
+    assert np.abs(got - cpu.score(crops, boxes, lm5, valid)).max() <= 1e-4
+
+
+def test_score_index_on_card_matches_cpu(cuda):
+    """A two-class head scored on its second logit, card against CPU."""
+    cfg = I3DConfig(num_frames=8, crop_size=64, num_classes=2)
+    gpu = ClipScorer.random_init(cfg, seed=7, dtype=torch.float32, device=cuda, score_index=1)
+    cpu = ClipScorer(gpu.model.state_dict(), cfg=cfg, dtype=torch.float32, device="cpu",
+                     score_index=1)
+    crops, boxes, lm5 = _rotated_batch(np.random.RandomState(8), 2, 8, 96)
+    valid = np.array([True, False])
+    probs, logits, _ = gpu.score_with_features(crops, boxes, lm5, valid)
+    np.testing.assert_allclose(probs[0], 1 / (1 + np.exp(-logits[0, 1])), atol=1e-6, rtol=0)
+    assert probs[1] == 0.0
+    assert np.abs(probs - cpu.score(crops, boxes, lm5, valid)).max() <= 1e-4
 
 
 @pytest.mark.parametrize("shape,kernel,stride", [

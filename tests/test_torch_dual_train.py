@@ -46,7 +46,7 @@ from stdd_torch.utils.msgpack import msgpack_restore
 from stdd_torch.utils.weights import (dual_flax_to_torch, dual_opt_state_from_flax,
                                       dual_opt_state_to_flax, dual_torch_to_flax)
 
-from torch_port_helpers import flax_without_dropout, max_rel_err
+from torch_port_helpers import flax_without_dropout, jax_draws, max_rel_err
 
 KW = dict(au_dim=12, lmk_dim=20, d_model=32, depth=2, heads=2, dropout=0.0, use_dat=True,
           domain_classes=3)
@@ -198,17 +198,6 @@ def batch_arrays(seed):
             "lengths": np.array([8, 6, 8, 3, 1, 8, 0, 5], np.int32),
             "dom_id": np.array([0, 1, 2, 0, 2, 0, 0, 1], np.int32),
             "trk": np.array([0, 0, 1, 1, 2, 3, 3, 3])}
-
-
-def jax_draws(key, step, y, t0, t1):
-    """The SLERP partners and t the JAX step draws at ``step``."""
-    _, slerp_rng = jax.random.split(jax.random.fold_in(key, step))
-    k1, k2 = jax.random.split(slerp_rng)
-    n = y.shape[0]
-    same = y[:, None] == y[None, :]
-    partner = jnp.argmax(jnp.where(same, jax.random.gumbel(k1, (n, n)), -jnp.inf), axis=1)
-    t = jax.random.uniform(k2, (n, 1), minval=t0, maxval=t1)
-    return partner, t
 
 
 def test_slerp_math_matches_jax_on_its_draws():

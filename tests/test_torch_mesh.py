@@ -16,7 +16,11 @@ read it:
   layer, Adam at 1e-3, ``slerp`` and ``dat`` off, a global batch of 16,
   float64, dropout off on both sides) against JAX's sharded step within
   1e-5 (``test_torch_dual_train.py``'s bound), and with dropout on against
-  the port's world-1 step;
+  the port's world-1 step; then the same step at ``DualTrainArgs``' own
+  ``slerp=True, dat=True`` (a domain head of 3 classes, DAT at λ = 0.05,
+  one invalid ``dom_id``): against JAX's sharded step given JAX's SLERP
+  draws, and with the port's own draws (dropout off and on) against the
+  port's world-1 step, the draws themselves equal on every rank;
 - sharded serving against the single scorer (1e-6), an indivisible batch
   refused, a checkpoint swap seen;
 - ``run_i3d --distributed`` (two processes of one job, each on its stripe
@@ -44,6 +48,10 @@ I3D_ARGS = dict(base_lr=0.04, max_epoch=2, warmup_epochs=1, warmup_start_lr=0.01
 GB = 8                                 # the I3D step's global batch (one a JAX device)
 DUAL_KW = dict(au_dim=4, lmk_dim=6, d_model=16, depth=1, heads=2)
 DB, DT = 16, 4                         # the dual step's global batch and frames
+# the dual step's variants: the dry run's, and DualTrainArgs' SLERP and DAT
+DUAL_VARIANTS = {"plain": (dict(slerp=False, dat=False), {}),
+                 "slerp_dat": ({}, dict(use_dat=True, domain_classes=3))}
+DAT_LAMBDA = 0.05
 TOL = 1e-5
 WORLD_TOL = 1e-10
 VIDEOS = ["original/000", "original/001", "original/002", "original/003", "original/004",
@@ -68,8 +76,10 @@ def i3d_batch():
 
 def dual_batch():
     rng = np.random.RandomState(0)
+    dom_id = (np.arange(DB) % 3).astype(np.int32)
+    dom_id[5] = -1                               # an invalid id: masked out of DAT
     return {"A": rng.randn(DB, DT, 4), "L": rng.randn(DB, DT, 6),
-            "y": (np.arange(DB) % 3 == 0).astype(np.float32)}
+            "y": (np.arange(DB) % 3 == 0).astype(np.float32), "dom_id": dom_id}
 
 
 # -- the ranks' side (this file as a script) -----------------------------------------
@@ -119,39 +129,58 @@ def _copy(tree):
     return {k: _copy(v) if isinstance(v, dict) else np.array(v) for k, v in tree.items()}
 
 
-def _dual_steps(dp):
+def _dual_steps(dp, jax_draws):
+    """Each variant's step at world 1 and at ``dp``'s world, dropout off
+    and on (the port's own SLERP draws, recorded), and the SLERP-DAT step
+    at ``dp``'s world given JAX's draws ``jax_draws`` (dropout off)."""
     from stdd_torch.models.dual_encoder import DualEncoderAU_LMK
     from stdd_torch.parallel.mesh import local_rows
+    from stdd_torch.train import engine_dual as eng
     from stdd_torch.train.altfreeze import active_mask_from_labels, dual_labels, dual_phase_active
-    from stdd_torch.train.engine_dual import DualTrainArgs, make_dual_train_step
     from stdd_torch.train.optim import adam
     from stdd_torch.train.step import TrainState
     from stdd_torch.utils.weights import dual_torch_to_flax
 
+    drawn = []
+    real_draws = eng.slerp_draws
+
+    def recording(*a, **kw):
+        partner, t = real_draws(*a, **kw)
+        drawn.append((partner.numpy().copy(), t.numpy().copy()))
+        return partner, t
+
+    eng.slerp_draws = recording
     out, batch = {}, dual_batch()
-    with pytest.raises(ValueError, match="slerp"):
-        make_dual_train_step(DualEncoderAU_LMK(**DUAL_KW), adam(1e-3),
-                             DualTrainArgs(batch=DB, dat=False), dp=dp)
-    for dropout in (0.0, 0.1):
-        for world, d in ((1, None), (dp.world, dp)):
-            model = DualEncoderAU_LMK(**DUAL_KW, dropout=dropout)
+    runs = [(v, dropout, world, None) for v in DUAL_VARIANTS for dropout in (0.0, 0.1)
+            for world in (1, dp.world)] + [("slerp_dat", 0.0, dp.world, jax_draws)]
+    try:
+        for variant, dropout, world, draws in runs:
+            d = None if world == 1 else dp
+            args_kw, model_kw = DUAL_VARIANTS[variant]
+            model = DualEncoderAU_LMK(**DUAL_KW, **model_kw, dropout=dropout)
             model.head_dropout = 2 * dropout
             model.double()
             # a copy: the bridge hands out views of the tensors the step updates
-            out.setdefault(("dual_init", dropout),
+            out.setdefault(("dual_init", variant),
                            _copy(dual_torch_to_flax(model.state_dict(), 2)))
             tx = adam(1e-3)
             params = dict(model.named_parameters())
             state = TrainState(params, {}, tx.init(params), 0)
-            args = DualTrainArgs(epochs=1, batch=DB, lr=1e-3, slerp=False, dat=False)
-            step = make_dual_train_step(model, tx, args, dp=d)
+            args = eng.DualTrainArgs(epochs=1, batch=DB, lr=1e-3, **args_kw)
+            step = eng.make_dual_train_step(model, tx, args, dp=d)
             b = {k: torch.from_numpy(v if d is None else local_rows(v, dp.rank, world))
                  for k, v in batch.items()}
             active = active_mask_from_labels(dual_labels(params), dual_phase_active("joint"))
-            state, parts = step(state, b, active, 0.0, 0)
-            out[("dual", dropout, world)] = {
-                "parts": {k: float(v) for k, v in parts.items()},
-                "params": dual_torch_to_flax(model.state_dict(), 2)}
+            drawn.clear()
+            state, parts = step(state, b, active, DAT_LAMBDA, 0,
+                                draws=None if draws is None else tuple(map(torch.from_numpy,
+                                                                           draws)))
+            key = ("dual", variant, dropout, world) + (() if draws is None else ("jax_draws",))
+            out[key] = {"parts": {k: float(v) for k, v in parts.items()},
+                        "params": dual_torch_to_flax(model.state_dict(), 2),
+                        "draws": list(drawn)}
+    finally:
+        eng.slerp_draws = real_draws
     return out
 
 
@@ -216,7 +245,8 @@ def _rank_main(rank, world, port, tree, work):
     dp = DataParallel(rank, world)
     res = {}
     res.update(_i3d_steps(dp))
-    res.update(_dual_steps(dp))
+    with np.load(os.path.join(work, "jax_draws.npz")) as f:
+        res.update(_dual_steps(dp, (f["partner"], f["t"])))
     res.update(_serving(dp))
     res.update(_distributed_cli(dp, tree, os.path.join(work, "dist_run")))
     res["collectives"] = dict(COLLECTIVES)
@@ -229,8 +259,18 @@ def _rank_main(rank, world, port, tree, work):
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """What each of the two ranks computed (the job runs once a module)."""
+    import jax
+    import jax.numpy as jnp
+
+    from torch_port_helpers import jax_draws
+
     work = str(tmp_path_factory.mktemp("mesh"))
     tree = write_tree(os.path.join(work, "tree"), 2, 16)
+    with jax.enable_x64(True):
+        partner, t = jax_draws(jax.random.PRNGKey(0), 0,
+                               jnp.asarray(dual_batch()["y"]).astype(jnp.int32), 0.1, 0.4)
+        np.savez(os.path.join(work, "jax_draws.npz"), partner=np.asarray(partner),
+                 t=np.asarray(t))
     from stdd_torch.parallel.mesh import free_port
 
     port = free_port()
@@ -343,9 +383,10 @@ def test_i3d_step_at_world_2_is_the_world_1_step(ranks, dropout):
             assert _tree_err(two[k], one[k]) <= WORLD_TOL, k
 
 
-def test_dual_dryrun_step_matches_jax_sharded_step(ranks):
-    """``__graft_entry__.py:97-133``'s program on the same init and global
-    batch, both sides without dropout, float64."""
+def _jax_sharded_dual_step(params, variant, draws_key):
+    """JAX's dual step (``stdd_tpu/train/engine_dual.py``) jitted over the
+    8-device mesh with the global batch on the data axis, from the port's
+    initial ``params``, without dropout, float64 → (parts, params)."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -360,44 +401,87 @@ def test_dual_dryrun_step_matches_jax_sharded_step(ranks):
 
     from torch_port_helpers import flax_without_dropout
 
-    _, _, out = ranks
     batch = dual_batch()
+    args_kw, model_kw = DUAL_VARIANTS[variant]
     mesh = make_mesh(jax.devices(), data=8, model=1)
     repl, data = NamedSharding(mesh, P()), NamedSharding(mesh, P("data"))
     with flax_without_dropout(), jax.enable_x64(True):
-        params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64),
-                                        out[0][("dual_init", 0.0)])
-        args = DualTrainArgs(epochs=1, batch=DB, lr=1e-3, slerp=False, dat=False)
+        params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), params)
+        args = DualTrainArgs(epochs=1, batch=DB, lr=1e-3, **args_kw)
         tx = optax.adam(args.lr)
         state = JaxTrainState(params, {}, tx.init(params), jnp.zeros((), jnp.int32))
         active = active_mask_from_labels(dual_labels(params), dual_phase_active("joint"))
-        raw = make_dual_train_step(JaxDual(**DUAL_KW, dropout=0.0), tx, args)
+        raw = make_dual_train_step(JaxDual(**DUAL_KW, **model_kw, dropout=0.0), tx, args)
         step = jax.jit(getattr(raw, "__wrapped__", raw),
-                       in_shardings=(repl, {"A": data, "L": data, "y": data}, repl, repl, repl),
+                       in_shardings=(repl, {k: data for k in batch}, repl, repl, repl),
                        out_shardings=(repl, repl))
         jb = {k: jax.device_put(jnp.asarray(v), data) for k, v in batch.items()}
         jstate, jparts = step(jax.device_put(state, repl), jb, jax.device_put(active, repl),
-                              jax.device_put(jnp.float64(0.0), repl), jax.random.PRNGKey(0))
-        jparams = jax.device_get(jstate.params)
+                              jax.device_put(jnp.float64(DAT_LAMBDA), repl), draws_key)
+        return {k: float(v) for k, v in jparts.items()}, jax.device_get(jstate.params)
+
+
+def test_dual_dryrun_step_matches_jax_sharded_step(ranks):
+    """``__graft_entry__.py:97-133``'s program on the same init and global
+    batch, both sides without dropout, float64."""
+    import jax
+
+    _, _, out = ranks
+    jparts, jparams = _jax_sharded_dual_step(out[0][("dual_init", "plain")], "plain",
+                                             jax.random.PRNGKey(0))
     for rank in out:
-        got = rank[("dual", 0.0, 2)]
+        got = rank[("dual", "plain", 0.0, 2)]
         for k in ("loss", "main", "align", "uniform"):
-            assert _rel(got["parts"][k], float(jparts[k])) <= TOL, k
-        assert got["parts"]["acc"] == float(jparts["acc"])
+            assert _rel(got["parts"][k], jparts[k]) <= TOL, k
+        assert "dat" not in got["parts"] and "dat" not in jparts
+        assert got["parts"]["acc"] == jparts["acc"]
         assert _tree_err(got["params"], jparams) <= TOL
 
 
-@pytest.mark.parametrize("dropout", [0.0, 0.1], ids=["no_dropout", "dropout"])
-def test_dual_step_at_world_2_is_the_world_1_step(ranks, dropout):
-    """The batch-coupled terms (alignment, uniformity) see the global batch;
-    the encoders' dropout draws the global batch's mask."""
+def test_dual_slerp_dat_step_matches_jax_sharded_step(ranks):
+    """``DualTrainArgs``' own SLERP and DAT at world 2 against JAX's step
+    jitted over the 8-device mesh on the same init and global batch, the
+    port given JAX's SLERP draws (``torch_port_helpers.jax_draws`` of the
+    step's key), both sides without dropout, float64; the invalid
+    ``dom_id`` is masked out of DAT on both."""
+    import jax
+
     _, _, out = ranks
-    one = out[0][("dual", dropout, 1)]
+    jparts, jparams = _jax_sharded_dual_step(out[0][("dual_init", "slerp_dat")], "slerp_dat",
+                                             jax.random.PRNGKey(0))
     for rank in out:
-        two = rank[("dual", dropout, 2)]
+        got = rank[("dual", "slerp_dat", 0.0, 2, "jax_draws")]
+        assert got["draws"] == []                          # JAX's draws were used
+        for k in ("loss", "main", "dat", "align", "uniform"):
+            assert _rel(got["parts"][k], jparts[k]) <= TOL, k
+        assert got["parts"]["acc"] == jparts["acc"]
+        assert _tree_err(got["params"], jparams) <= TOL
+    assert jparts["dat"] > 0.5                             # the term is there
+
+
+@pytest.mark.parametrize("variant,dropout", [
+    ("plain", 0.0), ("plain", 0.1), ("slerp_dat", 0.0), ("slerp_dat", 0.1)],
+    ids=["no_dropout", "dropout", "slerp_dat-no_dropout", "slerp_dat-dropout"])
+def test_dual_step_at_world_2_is_the_world_1_step(ranks, variant, dropout):
+    """The batch-coupled terms (alignment, uniformity) see the global batch;
+    the encoders' dropout draws the global batch's mask. With SLERP and DAT,
+    every rank draws the world-1 step's partners and ``t`` over the global
+    labels (the step's generator stands in the same state on each), and DAT
+    reads the global ``dom_id``."""
+    _, _, out = ranks
+    one = out[0][("dual", variant, dropout, 1)]
+    assert len(one["draws"]) == (variant == "slerp_dat")
+    for rank in out:
+        two = rank[("dual", variant, dropout, 2)]
+        assert set(two["parts"]) == set(one["parts"])
         for k, v in one["parts"].items():
             assert _rel(two["parts"][k], v) <= WORLD_TOL, k
         assert _tree_err(two["params"], one["params"]) <= WORLD_TOL
+        assert len(two["draws"]) == len(one["draws"])
+        for (p2, t2), (p1, t1) in zip(two["draws"], one["draws"]):
+            assert p2.shape == (DB,) and t2.shape == (DB, 1)
+            np.testing.assert_array_equal(p2, p1)
+            np.testing.assert_array_equal(t2, t1)
 
 
 def test_sharded_serving_matches_the_single_scorer_and_sees_a_swap(ranks):

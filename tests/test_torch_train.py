@@ -423,3 +423,23 @@ def test_metrics_match_the_sklearn_version(case):
         assert np.isnan(got["roc_auc"])
     else:
         assert got["roc_auc"] == pytest.approx(float(want["roc_auc"]), abs=1e-12)
+
+
+def test_topk_helpers_equal_jax_on_tied_scores():
+    """``topks_correct``, ``topk_accuracies`` and ``topk_errors`` on scores
+    with ties (rounded to one decimal, 6 classes): equal to JAX's, the
+    stable descending order deciding the tied ranks."""
+    from stdd_tpu.train import metrics as jax_m
+    from stdd_torch.train import metrics as m
+
+    rng = np.random.RandomState(3)
+    preds = np.round(rng.randn(50, 6), 1)
+    preds[:5] = 0.5                                          # whole rows tied
+    labels = rng.randint(0, 6, 50)
+    ks = (1, 2, 5)
+    for fn in ("topks_correct", "topk_accuracies", "topk_errors"):
+        got, want = getattr(m, fn)(preds, labels, ks), getattr(jax_m, fn)(preds, labels, ks)
+        assert got == want, fn
+    assert m.topks_correct(preds[:5], np.arange(5), (1,)) == [1.0]    # only class 0 wins a tie
+    with pytest.raises(ValueError, match="Batch dim"):
+        m.topks_correct(preds, labels[:-1], ks)

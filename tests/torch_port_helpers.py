@@ -61,6 +61,22 @@ def jax_i3d_variables(cfg, seed: int = 0) -> dict:
             "batch_stats": randomize_bn(v["batch_stats"], rng)}
 
 
+def jax_draws(key, step, y, t0, t1):
+    """The SLERP partners [n] and t [n, 1] the JAX dual step
+    (``stdd_tpu/train/engine_dual.py``) draws at ``step`` from ``key`` for
+    the labels ``y`` [n] (int32), as jax arrays."""
+    import jax
+    import jax.numpy as jnp
+
+    _, slerp_rng = jax.random.split(jax.random.fold_in(key, step))
+    k1, k2 = jax.random.split(slerp_rng)
+    n = y.shape[0]
+    same = y[:, None] == y[None, :]
+    partner = jnp.argmax(jnp.where(same, jax.random.gumbel(k1, (n, n)), -jnp.inf), axis=1)
+    t = jax.random.uniform(k2, (n, 1), minval=t0, maxval=t1)
+    return partner, t
+
+
 def max_rel_err(got, want) -> float:
     """max |got − want| over max(1, max |want|): an absolute bound for
     values of order one, a relative one for larger values."""
