@@ -1,0 +1,2 @@
+"""Plain references the benchmark holds the program's outputs to. Nothing
+here imports the program under test."""
