@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..config import DetectorConfig
 from ..ops.nms import nms_fixed
+from ..utils.spans import span
 from .onnx_torch import OnnxModule
 
 YUNET_STRIDES = (8, 16, 32)
@@ -171,9 +172,10 @@ def detect_scaled(det: YuNet, frame_bgr, det_size: Optional[int] = None) -> np.n
         # the graph's stride-8/16/32 grids need divisible inputs
         raise ValueError(f"det_size must be a multiple of 32 (got {w}x{h})")
     H, W = frame_bgr.shape[:2]
-    with torch.cuda.stream(det.stream):
-        small = resize_linear_u8(det._on_device(frame_bgr), h, w)
-    rows = det.detect_np(small)
+    with span("stdd.detector.detect"):
+        with torch.cuda.stream(det.stream):
+            small = resize_linear_u8(det._on_device(frame_bgr), h, w)
+        rows = det.detect_np(small)
     if rows.size:
         rows = rows.copy()
         rows[:, 0:14:2] *= W / w

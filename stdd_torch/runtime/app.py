@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import os
 from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -227,8 +226,8 @@ def main(argv=None):
     ap.add_argument("--no_warmup", dest="warmup", action="store_false",
                     help="skip the startup run of every scorer batch shape")
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="write a torch.profiler trace of the run into DIR "
-                         "(chrome trace JSON)")
+                    help="write a torch.profiler trace of the run, every thread's "
+                         "spans included, to DIR/trace.json (chrome trace JSON)")
     ap.add_argument("--max_batch_wait", type=int, default=None,
                     help="ship a partial clip batch after this many frames "
                          "(default: stride — a 1-face call must not wait for "
@@ -263,7 +262,7 @@ def main(argv=None):
     import torch
 
     from ..models.yunet import DEFAULT_MODEL, YuNet, detect_scaled
-    from ..utils.misc import check_device
+    from ..utils.misc import check_device, profiler_trace
     from . import sources
     from .classifier import load_scorer
     from .engine import AsyncDetector
@@ -313,21 +312,15 @@ def main(argv=None):
     else:
         frames = sources.iter_video_file(args.source, max_frames=args.max_frames)
 
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if scorer.device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = (torch.profiler.profile(activities=activities) if args.profile
-            else contextlib.nullcontext())
+    prof = profiler_trace(args.profile) if args.profile else contextlib.nullcontext()
     try:
         with prof:
             ready, fake = run_loop(app, frames, out_video=args.out_video)
     finally:
         engine.close()
-    if args.profile:
-        os.makedirs(args.profile, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
     print(f"frames: {app.frames_seen}")
     print(f"meeting verdict: ready={ready} fake={fake}")
+    print("stats: " + " ".join(f"{k}={v}" for k, v in engine.stats().items()))
 
 
 if __name__ == "__main__":

@@ -44,6 +44,7 @@ from ..ops.align import clip_geometry, similarity_cv2, std_points
 from ..ops.bottleneck import fused_bottleneck
 from ..ops.warp import pack_warp_params, warp_affine
 from ..utils.checkpoint import load_checkpoint, tolerant_merge
+from ..utils.spans import span
 from ..utils.weights import i3d_flax_to_torch, i3d_torch_to_flax
 
 
@@ -293,16 +294,20 @@ class ClipScorer:
                     raise ValueError(
                         f"upload_format='yuv420' expects planar I420 crops "
                         f"[B,T,S*3//2,S]; got shape {tuple(crops.shape)} (pack with yuv420=True)")
-                crops = yuv420_to_rgb(crops)
+                with span("stdd.scorer.decode"):
+                    crops = yuv420_to_rgb(crops)
             elif crops.dim() != 5:
                 raise ValueError(
                     f"upload_format='rgb' expects crops [B,T,H,W,3]; got shape {tuple(crops.shape)}")
-            aligned = self._align_batch(crops, boxes.float(), lm5.float(), scale, warp)
-            if self.round_aligned_u8:
-                aligned = torch.round(torch.clamp(aligned, 0, 255))
-            x = (aligned - self._mean) / self._std
-            logits, feats = self.model(x, return_features=True, bottleneck=bottleneck)
-            probs = torch.where(valid, torch.sigmoid(logits[:, self.score_index].float()), 0.0)
+            with span("stdd.scorer.align"):
+                aligned = self._align_batch(crops, boxes.float(), lm5.float(), scale, warp)
+                if self.round_aligned_u8:
+                    aligned = torch.round(torch.clamp(aligned, 0, 255))
+            with span("stdd.scorer.trunk"):
+                x = (aligned - self._mean) / self._std
+                logits, feats = self.model(x, return_features=True, bottleneck=bottleneck)
+                probs = torch.where(valid, torch.sigmoid(logits[:, self.score_index].float()),
+                                    0.0)
             if with_features:
                 return probs, logits.float(), feats
             return probs
@@ -366,15 +371,17 @@ class ClipScorer:
         padded[:starts.size] = starts
         valid = np.arange(n_pad) < starts.size
         with torch.inference_mode():
-            frames_d = self._to_device(frames)
-            boxes_d = self._to_device(boxes, torch.float32)
-            lm5_d = self._to_device(lm5, torch.float32)
-            idx = self._to_device(padded)[:, None] + torch.arange(T, device=self.device)
-            valid_d = self._to_device(valid)
+            with span("stdd.scorer.upload"):
+                frames_d = self._to_device(frames)
+                boxes_d = self._to_device(boxes, torch.float32)
+                lm5_d = self._to_device(lm5, torch.float32)
+                idx = self._to_device(padded)[:, None] + torch.arange(T, device=self.device)
+                valid_d = self._to_device(valid)
             probs = [self._score_impl(frames_d[idx[i:i + batch]], boxes_d[idx[i:i + batch]],
                                       lm5_d[idx[i:i + batch]], valid_d[i:i + batch])
                      for i in range(0, n_pad, batch)]
-            out[:] = torch.cat(probs)[:starts.size].cpu().numpy()
+            with span("stdd.scorer.fetch"):
+                out[:] = torch.cat(probs)[:starts.size].cpu().numpy()
         return out
 
     def score_windows(self, windows, boxes, lm5, scale, valid,

@@ -7,7 +7,11 @@ Port of ``stdd_tpu/runtime/dispatch.py``. This module owns:
   launch off the stepping thread, overlapping decode/track with scoring),
 - the strict-FIFO harvest cursor that routes each clip's score to the engine
   that produced it,
-- the ring kernels/uploader shared by every device-resident track ring.
+- the ring kernels/uploader shared by every device-resident track ring,
+- the group's counters (``GROUP_COUNTERS``) and the log of routed windows
+  (``WindowRecord``: frame indices, geometry, score, batch, and the
+  enqueue, dispatch and routed stamps); each lane's launch, wait and route
+  run in ``stdd.lane.*`` spans (``utils/spans.py``).
 
 Per-stream state (tracker, buffers, rings, verdict accumulation) stays in
 :class:`~stdd_torch.runtime.engine.StreamingEngine`. Several engines can
@@ -38,8 +42,27 @@ from typing import Any, Deque, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.spans import span
+
 # queue sentinel: tells a dispatch lane to exit (DispatchGroup.close)
 _CLOSE = object()
+
+# the group's counters (``DispatchGroup.stats()``), over every stream it
+# serves. After a flush, every window an engine enqueued is routed, stale or
+# failed: windows_full + windows_early (the engines') = windows_routed +
+# windows_stale + windows_failed
+GROUP_COUNTERS = (
+    "batches",            # batches handed to a dispatch lane
+    "windows_shipped",    # windows in them
+    "padded_slots",       # padding slots shipped to fill a batch capacity
+    "windows_routed",     # scores routed to their stream
+    "windows_stale",      # dropped for their stream's reset (owner generation, or never shipped)
+    "windows_failed",     # in a batch whose launch, fetch or routing raised
+    "batches_failed",     # such batches
+)
+
+# routed windows the group's log keeps (``DispatchGroup.windows()``)
+WINDOW_LOG_LEN = 4096
 
 
 @dataclass
@@ -53,6 +76,50 @@ class _PendingClip:
     # device-ring mode: (dev_window [T,...] u8 on the card, boxes [T,4],
     # lm5 [T,5,2], scale [T]) — entries stay metadata-only
     window: Optional[tuple] = None
+    early: bool = False           # a provisional (padded) first window
+    t_dispatch: float = 0.0       # perf_counter when handed to a dispatch lane
+    t_routed: float = 0.0         # perf_counter when its score was routed
+
+
+@dataclass
+class WindowRecord:
+    """One routed window, as the group's log keeps it. Geometry is the
+    window's own (held, not copied), unscaled; ``scale`` is each frame's
+    pack scale. Stamps are ``time.perf_counter()``."""
+    stream: Optional[int]         # the server's stream id of the call (None outside one)
+    tid: int                      # track id
+    kind: str                     # "full" or "early"
+    frames: np.ndarray            # [T] int64 the engine's frame indices, oldest
+                                  # first (an early window repeats its newest)
+    boxes: np.ndarray             # [T, 4] absolute big boxes
+    lm5: np.ndarray               # [T, 5, 2] crop-local landmarks
+    scale: np.ndarray             # [T] float32
+    prob: float                   # the score routed
+    batch_seq: int                # the batch's dispatch sequence number
+    batch_size: int               # windows in the batch (padding not counted)
+    t_enq: float
+    t_dispatch: float
+    t_routed: float
+
+
+def _record(clip: _PendingClip, T: int, S: int, prob: float, seq: int, n: int) -> WindowRecord:
+    entries = clip.entries
+    frames = [e.frame_idx for e in entries]
+    frames += frames[-1:] * (T - len(frames))
+    if clip.window is not None:
+        _, boxes, lm5, scale = clip.window
+    else:
+        # a host-packed clip: the geometry ``pack_clip_batch`` packs, unscaled
+        padded = list(entries) + entries[-1:] * (T - len(entries))
+        boxes = np.stack([np.asarray(e.big_box, np.float32) for e in padded])
+        lm5 = np.stack([np.asarray(e.lm5, np.float32) for e in padded])
+        s = min(1.0, S / float(max(max(e.crop.shape[:2]) for e in padded)))
+        scale = np.full((T,), s, np.float32)
+    return WindowRecord(
+        stream=getattr(clip.owner, "stream_id", None), tid=clip.tid,
+        kind="early" if clip.early else "full", frames=np.asarray(frames, np.int64),
+        boxes=boxes, lm5=lm5, scale=scale, prob=prob, batch_seq=seq, batch_size=n,
+        t_enq=clip.t_enq, t_dispatch=clip.t_dispatch, t_routed=clip.t_routed)
 
 
 class DispatchGroup:
@@ -75,6 +142,11 @@ class DispatchGroup:
         self._tick = 0
         # bounded: a never-reset serving root must not grow forever
         self.clip_latencies: Deque[float] = collections.deque(maxlen=10000)
+        # counters over the group's life and the log of routed windows; the
+        # stepping threads and both lanes write them, under _count_lock
+        self.counts = dict.fromkeys(GROUP_COUNTERS, 0)
+        self.window_log: Deque[WindowRecord] = collections.deque(maxlen=WINDOW_LOG_LEN)
+        self._count_lock = threading.Lock()
         # in-flight async device batches: (seq, clips, device_probs,
         # t_dispatch); harvested strictly in dispatch order (seq) so
         # per-track score sequences are deterministic even when the two
@@ -159,11 +231,16 @@ class DispatchGroup:
         late arrivals can't leak scores into the new one."""
         self._dispatch_q.join()
         with self._lock:
+            dropped = sum(len(e[1]) for e in self.inflight)
             self.inflight = []
         with self._state_lock:
+            dropped += len(self.pending)
             self.pending = []
             self._tick = 0
+        self._count(windows_stale=dropped)
         self.clip_latencies = collections.deque(maxlen=10000)
+        with self._count_lock:
+            self.window_log.clear()
         self._next_seq = 0
         self._next_harvest_seq = 0
 
@@ -172,7 +249,24 @@ class DispatchGroup:
         clips; peers are undisturbed. Its clips already in flight are
         discarded at harvest by the owner-generation check."""
         with self._state_lock:
-            self.pending = [c for c in self.pending if c.owner is not engine]
+            kept = [c for c in self.pending if c.owner is not engine]
+            self._count(windows_stale=len(self.pending) - len(kept))
+            self.pending = kept
+
+    def _count(self, **deltas: int) -> None:
+        with self._count_lock:
+            for k, v in deltas.items():
+                self.counts[k] += v
+
+    def stats(self) -> dict:
+        """The group's counters (``GROUP_COUNTERS``) over its life."""
+        with self._count_lock:
+            return dict(self.counts)
+
+    def windows(self) -> List[WindowRecord]:
+        """The log of routed windows, oldest first (the last ``WINDOW_LOG_LEN``)."""
+        with self._count_lock:
+            return list(self.window_log)
 
     def close(self) -> None:
         """Shut down the two dispatch lanes (a parked daemon lane pins the
@@ -231,7 +325,11 @@ class DispatchGroup:
             # worker thread too, so the stepping thread only enqueues
             seq = self._next_seq
             self._next_seq += 1
-        self._dispatch_q.put((seq, batch, time.perf_counter()))
+        t = time.perf_counter()
+        for clip in batch:
+            clip.t_dispatch = t
+        self._count(batches=1, windows_shipped=len(batch))
+        self._dispatch_q.put((seq, batch, t))
 
     def _cap_for(self, n: int) -> int:
         """Next power-of-2 dispatch capacity ≥ n (bounded by batch_clips)."""
@@ -250,6 +348,7 @@ class DispatchGroup:
         from .packing import pack_clip_batch, upload_format_of
 
         cap = self._cap_for(len(batch))
+        self._count(padded_slots=cap - len(batch))
         crops, boxes, lm5, valid = pack_clip_batch(
             [c.entries for c in batch], cap,
             self.cfg.clip_size, self.crop_buffer,
@@ -262,6 +361,7 @@ class DispatchGroup:
         only geometry (KBs) is uploaded. Pads to the next pow2 capacity."""
         T = self.cfg.clip_size
         cap = self._cap_for(len(sub))
+        self._count(padded_slots=cap - len(sub))
         boxes = np.ones((cap, T, 4), np.float32)
         lm5 = np.ones((cap, T, 5, 2), np.float32)
         scale = np.ones((cap, T), np.float32)
@@ -306,7 +406,8 @@ class DispatchGroup:
             batch: List[_PendingClip] = []
             try:
                 seq, batch, t0 = item
-                dev = self._score_batch(batch)
+                with span("stdd.lane.launch"):
+                    dev = self._score_batch(batch)
                 # Ring mode: materialize the probs HERE, on the lane
                 # thread, and route immediately: harvesting only from the
                 # stepping thread quantizes window latency to the step
@@ -320,7 +421,8 @@ class DispatchGroup:
                 if eager:
                     parts = (dev if isinstance(dev, list)
                              else [(range(len(batch)), dev)])
-                    dev = [(idx, np.asarray(d)) for idx, d in parts]
+                    with span("stdd.lane.wait"):
+                        dev = [(idx, np.asarray(d)) for idx, d in parts]
                 with self._lock:
                     self.inflight.append((seq, batch, dev, t0))
                 if eager:
@@ -337,7 +439,8 @@ class DispatchGroup:
                     # this lane shipped); what escapes here is
                     # infrastructure, so it goes to the default stream.
                     try:
-                        self.harvest(block=False)
+                        with span("stdd.lane.route"):
+                            self.harvest(block=False)
                     except Exception as exc:
                         import traceback
 
@@ -353,6 +456,7 @@ class DispatchGroup:
 
                 traceback.print_exc()
                 self._route_error(batch, exc)
+                self._count(batches_failed=1, windows_failed=len(batch))
                 with self._lock:
                     self.inflight.append((item[0], [], None, item[2]))
             finally:
@@ -445,6 +549,7 @@ class DispatchGroup:
                     if entry in self.inflight:
                         self.inflight.remove(entry)
                 self._route_error(batch, exc)
+                self._count(batches_failed=1, windows_failed=len(batch))
                 self._next_harvest_seq += 1
                 continue
             now = time.perf_counter()
@@ -453,25 +558,37 @@ class DispatchGroup:
                     self.inflight.remove(entry)
                 except ValueError:
                     continue
+            T, S = self.cfg.clip_size, self.crop_buffer
+            routed, stale, records = 0, 0, []
             try:
                 for bi, clip in enumerate(batch):
                     # per-clip enqueue→scored latency, the reference's
                     # clip_enqueue_t/clip_infer_t accounting (TEST2.py:316,440)
                     self.clip_latencies.append(now - (clip.t_enq or t0))
+                    clip.t_routed = now
                     owner = clip.owner or self.default_owner
                     if owner._gen != clip.owner_gen:
+                        stale += 1
                         continue  # the owner's stream was reset: stale score
                     p = float(probs[bi])
                     owner.track_clip_scores[clip.tid].append(p)
                     owner.hysteresis.update(clip.tid, p)
                     with owner._ready_lock:
                         owner._ready.append((clip.tid, p))
+                    routed += 1
+                    records.append(_record(clip, T, S, p, seq, len(batch)))
             except Exception as exc:
                 # a routing failure belongs to THIS batch's streams (the
                 # caller may be a lane that shipped another batch): surface
                 # it to them and keep the cursor advancing exactly like the
                 # fetch-failure path
                 self._route_error(batch, exc)
+                self._count(batches_failed=1,
+                            windows_failed=len(batch) - routed - stale)
+            with self._count_lock:
+                self.counts["windows_routed"] += routed
+                self.counts["windows_stale"] += stale
+                self.window_log.extend(records)
             # advance the cursor only AFTER routing: _harvest_until's target
             # check (under _harvest_lock) must imply the scores have landed
             self._next_harvest_seq += 1

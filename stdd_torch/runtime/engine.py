@@ -15,6 +15,12 @@ several engines may share (``share_dispatch_from``, the multi-call server);
 this module keeps the PER-STREAM state machine: tracking, landmark caching,
 quality gating, per-track rings/buffers, and verdict accumulation.
 
+Each stage of :meth:`StreamingEngine.step` runs inside its span
+(``stdd.engine.step`` around ``stdd.engine.detect``, ``.track``,
+``.crop_gate``, ``stdd.ring.pack``/``.upload``, ``stdd.engine.emit`` and
+``stdd.dispatch.tick``; ``utils/spans.py``) and counts into
+``ENGINE_COUNTERS`` (``stats()``).
+
 Clips are padded to ``[capacity, clip_size, crop_buffer, crop_buffer, 3]``
 with power-of-two capacities; oversized crops are rescaled host-side by a
 uniform factor (a similarity fit absorbs a uniform scale exactly, so
@@ -36,6 +42,7 @@ from __future__ import annotations
 
 import collections
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
@@ -44,9 +51,25 @@ import numpy as np
 from ..config import PipelineConfig
 from ..ops.quality import crop_quality
 from ..track.byte_tracker import ByteTracker
+from ..utils.spans import span
 from .classifier import ClipScorer
 from .dispatch import DispatchGroup, _PendingClip
 from .scoring import HysteresisState, VideoVerdict, aggregate_video
+
+
+# the engine's counters (``StreamingEngine.stats()``), all per call stream:
+ENGINE_COUNTERS = (
+    "frames",                 # frames stepped
+    "detect_frames",          # of them, frames the detector ran on
+    "faces_tracked",          # live tracks summed over frames
+    "dropped_no_landmarks",   # a tracked face's frame dropped: no landmarks cached yet
+    "dropped_quality",        # … dropped by the quality gate (or a degenerate crop box)
+    "windows_full",           # full windows enqueued
+    "windows_early",          # provisional (early) windows enqueued
+    "windows_host_packed",    # of them, windows that carry pixels (no device ring)
+    "ring_failures",          # a ring push or window gather raised; the track restarts
+    "ring_evictions",         # rings dropped for a new track over ``max_rings``
+)
 
 
 def get_crop_box(shape_hw: Tuple[int, int], box: np.ndarray, scale: float = 0.5) -> np.ndarray:
@@ -73,6 +96,7 @@ class _FrameEntry:
     crop: np.ndarray          # RGB uint8 big-box crop (native resolution)
     big_box: np.ndarray       # absolute (x1, y1, x2, y2) int
     lm5: np.ndarray           # crop-local [5, 2] float32
+    frame_idx: int = -1       # the engine's index of the frame (0 = first stepped)
 
 
 class AsyncDetector:
@@ -264,6 +288,11 @@ class StreamingEngine:
         # guards _ready against a peer thread's or a dispatch lane's harvest
         # racing _take_ready's swap
         self._ready_lock = threading.Lock()
+        # plain integer counters over the engine's life (``stats()``); only
+        # the stepping thread writes them
+        self.counts: Dict[str, int] = dict.fromkeys(ENGINE_COUNTERS, 0)
+        # the server's id of this engine's call (None outside a server)
+        self.stream_id: Optional[int] = None
         self.reset()
 
     # group-level pipeline state lives on the DispatchGroup; engines delegate
@@ -317,6 +346,12 @@ class StreamingEngine:
         self._stagger_assigned: set = set()   # tids already phase-offset
         self._early_emitted: set = set()      # tids with a provisional window
 
+    def stats(self) -> Dict[str, int]:
+        """This engine's counters (``ENGINE_COUNTERS``) over its life, then
+        its dispatch group's (``dispatch.GROUP_COUNTERS``; group-wide: every
+        stream of a server shares them)."""
+        return {**self.counts, **self._group.stats()}
+
     def warmup(self) -> None:
         """Run the scorer for every batch capacity this engine's dispatch
         group can ship, so no clip pays a first-call cost.
@@ -340,23 +375,130 @@ class StreamingEngine:
     # -- per-frame host path -------------------------------------------------
 
     def step(self, frame_bgr: np.ndarray) -> List[Tuple[int, float]]:
+        with span("stdd.engine.step"):
+            return self._step(frame_bgr)
+
+    def _step(self, frame_bgr: np.ndarray) -> List[Tuple[int, float]]:
         H, W = frame_bgr.shape[:2]
-        need_det = self.frame_idx % max(1, self.cfg.detect_every) == 0
+        fi = self.frame_idx
+        need_det = fi % max(1, self.cfg.detect_every) == 0
         self.frame_idx += 1
+        counts = self.counts
+        counts["frames"] += 1
 
         dets = None
         if need_det:
-            dets = np.asarray(self.detect_fn(frame_bgr))  # [N, 15] YuNet rows
-            if dets.size:
-                keep = (dets[:, 14] >= self.start_conf) & (
-                    np.maximum(dets[:, 2], dets[:, 3]) >= self.cfg.min_face_side
-                )
-                if self.min_det_area > 0:
-                    keep &= dets[:, 2] * dets[:, 3] >= self.min_det_area
-                if self.exclude_bottom_frac > 0:
-                    cy = dets[:, 1] + 0.5 * dets[:, 3]
-                    keep &= cy < H * (1.0 - self.exclude_bottom_frac)
-                dets = dets[keep]
+            counts["detect_frames"] += 1
+            with span("stdd.engine.detect"):
+                dets = np.asarray(self.detect_fn(frame_bgr))  # [N, 15] YuNet rows
+        with span("stdd.engine.track"):
+            live, dets = self._track(dets, H)
+        counts["faces_tracked"] += len(live)
+
+        # ring eviction must never touch a face that is live in THIS frame
+        # (evicting one live track to ring another would cascade every frame
+        # in a crowd and no face would ever accumulate a full window)
+        self._live_now = {tr.track_id for tr in live}
+
+        for tr in live:
+            tid = tr.track_id
+            box = tr.tlbr
+            self.last_seen[tid] = self.frame_idx
+            self.track_frames[tid] += 1
+
+            with span("stdd.engine.crop_gate"):
+                got = self._crop_and_gate(tid, box, dets, frame_bgr, H, W)
+            if got is None:
+                continue
+            crop, big_box, lm5_local = got
+            buf = self.buffers.setdefault(
+                tid, collections.deque(maxlen=self.cfg.clip_size)
+            )
+            ring = None
+            if self.device_resident:
+                ring = self.rings.get(tid)
+                if ring is None:
+                    # may return None when every ring slot belongs to a face
+                    # live this frame (crowd > max_rings): this track then
+                    # runs the host-packed path instead of thrash-evicting
+                    ring = self._new_ring()
+                    if ring is not None:
+                        self.rings[tid] = ring
+                        # windowing restarts aligned with the fresh ring so
+                        # len(buf) >= clip_size implies ring.count >= clip_size
+                        buf.clear()
+            if ring is not None:
+                # crop lands on the card now (async); entries keep only the
+                # geometry so windows never re-upload pixels. A failed push
+                # leaves the ring a frame short: drop it and restart this
+                # track's windowing clean (the next frame builds a new ring)
+                # instead of ending the whole stream
+                try:
+                    ring.push(crop, big_box, lm5_local)
+                except RuntimeError:
+                    self._ring_failed(tid, buf)
+                    continue
+                buf.append(_FrameEntry(None, big_box, lm5_local, fi))
+            else:
+                buf.append(_FrameEntry(crop, big_box, lm5_local, fi))
+            self.since_emit[tid] += 1
+
+            full = len(buf) >= self.cfg.clip_size
+            if full and self.since_emit[tid] >= self.cfg.stride:
+                with span("stdd.engine.emit"):
+                    emitted = self._emit(tid, buf, early=False)
+                if not emitted:
+                    continue
+                self.since_emit[tid] = 0
+                if self.stagger_windows and tid not in self._stagger_assigned:
+                    # offset this track's subsequent stride ticks by a
+                    # golden-ratio fraction of the stride: co-appearing faces
+                    # spread across the stride interval instead of all
+                    # dispatching on the same tick (first window timing is
+                    # untouched — only the steady-state phase shifts, once)
+                    self._stagger_assigned.add(tid)
+                    k = self._n_staggered
+                    self._n_staggered += 1
+                    phase = int(self.cfg.stride * ((k * 0.61803398875) % 1.0))
+                    self.since_emit[tid] = -phase
+            elif (
+                not full
+                and self.early_window_frames
+                and tid not in self._early_emitted
+                and len(buf) >= self.early_window_frames
+            ):
+                # sub-stride provisional first window (padded with the newest
+                # frame, TEST2.py:358-363 semantics) — the first verdict for
+                # a newly-confirmed track lands in ~early_window_frames
+                # frames instead of a full clip_size. since_emit is NOT
+                # reset: the first full window keeps its regular schedule.
+                self._early_emitted.add(tid)
+                with span("stdd.engine.emit"):
+                    self._emit(tid, buf, early=True)
+
+        self._gc_tracks()
+
+        with span("stdd.dispatch.tick"):
+            group = self._group
+            group.tick_and_dispatch()
+            group.harvest(block=False)
+            self._raise_worker_error()
+            return self._take_ready()
+
+    def _track(self, dets: Optional[np.ndarray], H: int):
+        """Filter a detect frame's rows, update the tracker (or read its live
+        tracks between detections) and count id switches → (live tracks,
+        the kept rows or None)."""
+        if dets is not None and dets.size:
+            keep = (dets[:, 14] >= self.start_conf) & (
+                np.maximum(dets[:, 2], dets[:, 3]) >= self.cfg.min_face_side
+            )
+            if self.min_det_area > 0:
+                keep &= dets[:, 2] * dets[:, 3] >= self.min_det_area
+            if self.exclude_bottom_frac > 0:
+                cy = dets[:, 1] + 0.5 * dets[:, 3]
+                keep &= cy < H * (1.0 - self.exclude_bottom_frac)
+            dets = dets[keep]
 
         if dets is not None:
             tlbr = (
@@ -390,149 +532,71 @@ class StreamingEngine:
             # consecutive-frame metric: an empty frame breaks the chain, so
             # a later face at a similar position is not a "switch"
             self._prev_boxes = self._prev_ids = None
+        return live, dets
 
-        results: List[Tuple[int, float]] = []
-        # ring eviction must never touch a face that is live in THIS frame
-        # (evicting one live track to ring another would cascade every frame
-        # in a crowd and no face would ever accumulate a full window)
-        self._live_now = {tr.track_id for tr in live}
+    def _crop_and_gate(self, tid: int, box: np.ndarray, dets: Optional[np.ndarray],
+                       frame_bgr: np.ndarray, H: int, W: int):
+        """One tracked face's landmarks, crop box, RGB crop and quality gate
+        → (crop, big_box, crop-local lm5), or None when the frame is dropped
+        (no landmarks yet, a degenerate box, or the gate)."""
+        lm5 = self._landmarks_for(tid, box, dets)
+        if lm5 is None:
+            self.counts["dropped_no_landmarks"] += 1
+            return None
 
-        for tr in live:
-            tid = tr.track_id
-            box = tr.tlbr
-            self.last_seen[tid] = self.frame_idx
-            self.track_frames[tid] += 1
+        big_box = get_crop_box((H, W), box, self.cfg.crop_scale)
+        x1, y1, x2, y2 = big_box
+        if x2 <= x1 + 1 or y2 <= y1 + 1:
+            self.counts["dropped_quality"] += 1
+            return None
+        # crop + BGR→RGB as one contiguous copy of the flipped view
+        crop = np.ascontiguousarray(frame_bgr[y1:y2, x1:x2, ::-1])
+        # the Laplacian blur metric only matters for soft weighting, the
+        # hard blur gate, or the QA stats (first 50 samples per track);
+        # once none apply, the exact same gating needs only min_side
+        if (
+            self.q["weighting"]
+            or self.q["lap_hard"] > 0
+            or len(self.qstats[tid]) < 50
+        ):
+            wq, q_side, q_lap = crop_quality(crop, **self.q)
+            if len(self.qstats[tid]) < 50:
+                self.qstats[tid].append((q_side, q_lap))
+        else:
+            wq = 0.0 if min(crop.shape[:2]) < self.q["min_size_hard"] else 1.0
+        if wq <= 0.0:
+            self.counts["dropped_quality"] += 1
+            return None
+        return crop, big_box, (lm5 - np.array([x1, y1], np.float32)).astype(np.float32)
 
-            lm5 = self._landmarks_for(tid, box, dets)
-            if lm5 is None:
-                continue
+    def _emit(self, tid: int, buf, early: bool) -> bool:
+        """Gather the track's window (full, or the provisional padded one)
+        and enqueue it; False when the ring failed and the track restarts."""
+        # a track without a ring (crowd overflow) carries pixels in its
+        # buffer entries and ships through the host-packed path
+        emit_ring = self.rings.get(tid) if self.device_resident else None
+        window = None
+        if emit_ring is not None:
+            try:
+                window = (emit_ring.window_padded(self.cfg.clip_size) if early
+                          else emit_ring.window(self.cfg.clip_size))
+            except RuntimeError:
+                # a push or the gather failed: self-heal as a failed push does
+                self._ring_failed(tid, buf)
+                return False
+        else:
+            self.counts["windows_host_packed"] += 1
+        self.counts["windows_early" if early else "windows_full"] += 1
+        self._group.enqueue(
+            _PendingClip(tid, list(buf), owner=self, owner_gen=self._gen,
+                         t_enq=time.perf_counter(), window=window, early=early)
+        )
+        return True
 
-            big_box = get_crop_box((H, W), box, self.cfg.crop_scale)
-            x1, y1, x2, y2 = big_box
-            if x2 <= x1 + 1 or y2 <= y1 + 1:
-                continue
-            # crop + BGR→RGB as one contiguous copy of the flipped view
-            crop = np.ascontiguousarray(frame_bgr[y1:y2, x1:x2, ::-1])
-            # the Laplacian blur metric only matters for soft weighting, the
-            # hard blur gate, or the QA stats (first 50 samples per track);
-            # once none apply, the exact same gating needs only min_side
-            if (
-                self.q["weighting"]
-                or self.q["lap_hard"] > 0
-                or len(self.qstats[tid]) < 50
-            ):
-                wq, q_side, q_lap = crop_quality(crop, **self.q)
-                if len(self.qstats[tid]) < 50:
-                    self.qstats[tid].append((q_side, q_lap))
-            else:
-                wq = 0.0 if min(crop.shape[:2]) < self.q["min_size_hard"] else 1.0
-            if wq <= 0.0:
-                continue
-
-            lm5_local = (lm5 - np.array([x1, y1], np.float32)).astype(np.float32)
-            buf = self.buffers.setdefault(
-                tid, collections.deque(maxlen=self.cfg.clip_size)
-            )
-            ring = None
-            if self.device_resident:
-                ring = self.rings.get(tid)
-                if ring is None:
-                    # may return None when every ring slot belongs to a face
-                    # live this frame (crowd > max_rings): this track then
-                    # runs the host-packed path instead of thrash-evicting
-                    ring = self._new_ring()
-                    if ring is not None:
-                        self.rings[tid] = ring
-                        # windowing restarts aligned with the fresh ring so
-                        # len(buf) >= clip_size implies ring.count >= clip_size
-                        buf.clear()
-            if ring is not None:
-                # crop lands on the card now (async); entries keep only the
-                # geometry so windows never re-upload pixels. A failed push
-                # leaves the ring a frame short: drop it and restart this
-                # track's windowing clean (the next frame builds a new ring)
-                # instead of ending the whole stream
-                try:
-                    ring.push(crop, big_box, lm5_local)
-                except RuntimeError:
-                    self._drop_ring(tid)
-                    buf.clear()
-                    continue
-                buf.append(_FrameEntry(None, big_box, lm5_local))
-            else:
-                buf.append(_FrameEntry(crop, big_box, lm5_local))
-            self.since_emit[tid] += 1
-
-            full = len(buf) >= self.cfg.clip_size
-            if full and self.since_emit[tid] >= self.cfg.stride:
-                import time
-
-                # a track without a ring (crowd overflow) carries pixels in
-                # its buffer entries and ships through the host-packed path
-                emit_ring = self.rings.get(tid) if self.device_resident else None
-                if emit_ring is not None:
-                    try:
-                        window = emit_ring.window(self.cfg.clip_size)
-                    except RuntimeError:
-                        # a push or the gather failed: self-heal as above
-                        self._drop_ring(tid)
-                        buf.clear()
-                        continue
-                else:
-                    window = None
-                self._group.enqueue(
-                    _PendingClip(tid, list(buf), owner=self, owner_gen=self._gen,
-                                 t_enq=time.perf_counter(), window=window)
-                )
-                self.since_emit[tid] = 0
-                if self.stagger_windows and tid not in self._stagger_assigned:
-                    # offset this track's subsequent stride ticks by a
-                    # golden-ratio fraction of the stride: co-appearing faces
-                    # spread across the stride interval instead of all
-                    # dispatching on the same tick (first window timing is
-                    # untouched — only the steady-state phase shifts, once)
-                    self._stagger_assigned.add(tid)
-                    k = self._n_staggered
-                    self._n_staggered += 1
-                    phase = int(self.cfg.stride * ((k * 0.61803398875) % 1.0))
-                    self.since_emit[tid] = -phase
-            elif (
-                not full
-                and self.early_window_frames
-                and tid not in self._early_emitted
-                and len(buf) >= self.early_window_frames
-            ):
-                import time
-
-                # sub-stride provisional first window (padded with the newest
-                # frame, TEST2.py:358-363 semantics) — the first verdict for
-                # a newly-confirmed track lands in ~early_window_frames
-                # frames instead of a full clip_size. since_emit is NOT
-                # reset: the first full window keeps its regular schedule.
-                self._early_emitted.add(tid)
-                emit_ring = self.rings.get(tid) if self.device_resident else None
-                if emit_ring is not None:
-                    try:
-                        window = emit_ring.window_padded(self.cfg.clip_size)
-                    except RuntimeError:
-                        self._drop_ring(tid)
-                        buf.clear()
-                        continue
-                else:
-                    window = None
-                self._group.enqueue(
-                    _PendingClip(tid, list(buf), owner=self, owner_gen=self._gen,
-                                 t_enq=time.perf_counter(), window=window)
-                )
-
-        self._gc_tracks()
-
-        group = self._group
-        group.tick_and_dispatch()
-        group.harvest(block=False)
-        self._raise_worker_error()
-        results.extend(self._take_ready())
-        return results
+    def _ring_failed(self, tid: int, buf) -> None:
+        self.counts["ring_failures"] += 1
+        self._drop_ring(tid)
+        buf.clear()
 
     def _take_ready(self) -> List[Tuple[int, float]]:
         with self._ready_lock:
@@ -621,6 +685,7 @@ class StreamingEngine:
                 return None
             lru = min(candidates, key=lambda t: self.last_seen.get(t, -1))
             self._drop_ring(lru)
+            self.counts["ring_evictions"] += 1
             self.buffers.pop(lru, None)   # its window continuity is gone
             self.since_emit.pop(lru, None)
         return DeviceRing(group.ring_kernels(), uploader=group.ring_uploader())

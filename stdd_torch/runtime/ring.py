@@ -35,6 +35,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.spans import span
+
 
 class RingUploader:
     """Host→device pusher shared by every ring of a dispatch group: ships
@@ -151,11 +153,12 @@ class DeviceRing:
         s = min(1.0, S / float(max(crop.shape[0], crop.shape[1])))
         e = dict(crop=crop, big_box=big_box, lm5=lm5)
         slot = self._staged[self._n_staged]
-        if self.k.yuv420:
-            _encode_slot_yuv420(e, self._rgb_slot, s, slot)
-        else:
-            slot[:] = 0
-            _pack_entry(e, slot, s)
+        with span("stdd.ring.pack"):
+            if self.k.yuv420:
+                _encode_slot_yuv420(e, self._rgb_slot, s, slot)
+            else:
+                slot[:] = 0
+                _pack_entry(e, slot, s)
         self._n_staged += 1
         self.head = (self.head + 1) % self.k.R
         self.count += 1
@@ -172,10 +175,11 @@ class DeviceRing:
             return
         self._n_staged = 0
         i0 = (self.head - k + 1) % self.k.R
-        if self.uploader is not None:
-            self.uploader.submit(self, self._staged, i0, k)
-        else:
-            self.k.push_many(self.ring, torch.from_numpy(self._staged[:k].copy()), i0, k)
+        with span("stdd.ring.upload"):
+            if self.uploader is not None:
+                self.uploader.submit(self, self._staged, i0, k)
+            else:
+                self.k.push_many(self.ring, torch.from_numpy(self._staged[:k].copy()), i0, k)
 
     def _gather(self, fn, *args) -> torch.Tensor:
         """Run a window gather behind this ring's pushes and make the

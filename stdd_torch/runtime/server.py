@@ -33,7 +33,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..config import PipelineConfig
-from .engine import StreamingEngine
+from .dispatch import WindowRecord
+from .engine import ENGINE_COUNTERS, StreamingEngine
 from .scoring import VideoVerdict
 
 
@@ -71,6 +72,8 @@ class MultiStreamServer:
         )
         self.streams: Dict[int, StreamingEngine] = {}
         self._next_id = 0
+        # the counters of finished streams, so that stats() keeps balancing
+        self._finished_counts: Dict[str, int] = dict.fromkeys(ENGINE_COUNTERS, 0)
 
     def warmup(self) -> None:
         """Run every batch capacity the dispatch group can ship once (K1
@@ -89,6 +92,7 @@ class MultiStreamServer:
         )
         sid = self._next_id
         self._next_id += 1
+        eng.stream_id = sid
         self.streams[sid] = eng
         return sid
 
@@ -111,6 +115,8 @@ class MultiStreamServer:
         eng = self.streams[stream_id]
         verdict = eng.finish(**agg_kwargs)
         del self.streams[stream_id]
+        for k, v in eng.counts.items():
+            self._finished_counts[k] += v
         return verdict
 
     def engine(self, stream_id: int) -> StreamingEngine:
@@ -127,3 +133,22 @@ class MultiStreamServer:
     @property
     def clip_latencies(self) -> List[float]:
         return self._root.clip_latencies
+
+    def stats(self) -> Dict[str, int]:
+        """Every stream's counters summed (``engine.ENGINE_COUNTERS``,
+        finished streams included), then the shared dispatch group's
+        (``dispatch.GROUP_COUNTERS``). After a flush, windows_full +
+        windows_early = windows_routed + windows_stale + windows_failed."""
+        out = dict(self._finished_counts)
+        for eng in list(self.streams.values()):
+            for k, v in eng.counts.items():
+                out[k] += v
+        out.update(self._root._group.stats())
+        return out
+
+    def windows(self) -> List[WindowRecord]:
+        """The routed windows of every stream, oldest first
+        (``dispatch.WindowRecord``: stream, track, kind, frame indices,
+        geometry, score, batch, and the enqueue, dispatch and routed stamps),
+        the last ``dispatch.WINDOW_LOG_LEN`` of them."""
+        return self._root._group.windows()

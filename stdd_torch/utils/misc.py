@@ -9,7 +9,8 @@ Port of ``stdd_tpu/utils/misc.py``:
   over one call, where JAX asks XLA's cost analysis of the jitted function;
 - :func:`device_mem_stats` reads ``torch.cuda.memory_allocated`` and
   ``max_memory_allocated``; :func:`profiler_trace` is a ``torch.profiler``
-  scope with CUDA activity on the card, exported as a chrome trace;
+  scope over every thread, with CUDA activity on the card, exported as a
+  chrome trace (the port's one trace exporter: the app's ``--profile``);
 - ``enable_persistent_compilation_cache`` has no counterpart: it points
   XLA's compile cache at a directory, and eager PyTorch compiles nothing
   (the port's kernels are built once by ``utils/cuda_build.py`` and kept in
@@ -76,17 +77,22 @@ def device_mem_stats(device=None) -> Dict[str, float]:
 @contextlib.contextmanager
 def profiler_trace(log_dir: str):
     """``torch.profiler`` trace scope (CPU, and CUDA activity when a card is
-    present) written as ``trace.json`` under ``log_dir`` — the deep-dive
-    companion to the wall-clock stage timers; open it in Perfetto or
-    ``chrome://tracing``.
+    present) written as ``trace.json`` under ``log_dir``; open it in Perfetto
+    or ``chrome://tracing``. It records every thread (``profile_all_threads``),
+    so the spans of the dispatch lanes and the detector's worker
+    (``utils/spans.py``) are in the trace beside the stepping thread's.
 
     >>> with profiler_trace("/tmp/trace"):
     ...     probs = scorer.score(crops, boxes, lm5, valid)
     """
+    from torch._C._profiler import _ExperimentalConfig
+
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(
+            activities=activities,
+            experimental_config=_ExperimentalConfig(profile_all_threads=True)) as prof:
         yield prof
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

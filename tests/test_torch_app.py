@@ -12,9 +12,13 @@
 - ``main`` refuses, by name, the flags whose parts are not ported, and runs
   end to end on the CPU: X11 capture from the mock server, the YuNet-shaped
   graph through ``detect_scaled`` in ``AsyncDetector``, a checkpoint the
-  port wrote, and the meeting verdict; ``--ckpt`` serves a reference-format
+  port wrote, and the meeting verdict, its ``--profile`` trace holding the
+  stepping thread's and the detector worker's spans and its counters
+  printed on one line; ``--ckpt`` serves a reference-format
   ``.pth`` at ``--clip_size`` frames.
 """
+
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -244,9 +248,19 @@ def test_main_runs_end_to_end_on_the_cpu(tmp_path, monkeypatch, capsys):
               "--max_frames", "12", "--profile", str(tmp_path / "prof")])
     out = capsys.readouterr().out
     assert "meeting verdict: ready=" in out
+    assert "stats: frames=12 detect_frames=6 " in out
     assert len(captured) == 12
     np.testing.assert_array_equal(captured[3], scene.frame(3))
-    assert (tmp_path / "prof" / "trace.json").exists()
+    # one trace, every thread's spans: the stepping thread's and the
+    # detector worker's (the random graph finds no face, so no window
+    # reaches a lane here; tests/test_torch_spans.py drives the lanes)
+    events = json.load(open(tmp_path / "prof" / "trace.json"))["traceEvents"]
+    threads = {}
+    for e in events:
+        if e.get("name", "").startswith("stdd."):
+            threads.setdefault(e["name"], set()).add(e["tid"])
+    assert {"stdd.engine.step", "stdd.detector.detect"} <= set(threads), sorted(threads)
+    assert threads["stdd.engine.step"].isdisjoint(threads["stdd.detector.detect"])
 
 
 def test_main_serves_a_reference_ckpt(tmp_path, monkeypatch, capsys):
