@@ -21,11 +21,18 @@ bottleneck ``resnet_helper.py:196``; head ``head_helper.py:9``).
   the head applies ``Dropout(dropout_rate)`` drawn from a caller-given
   ``torch.Generator``. The gradient reaches the float32 weights through the
   per-convolution cast to the compute dtype, as in flax.
-- The convolutions are plain ``F.conv3d`` (cuDNN on the card) — the JAX
-  model leaves them to XLA outside any Pallas kernel.
+- The convolutions are cuDNN's through ``F.conv3d`` (two of them re-laid in
+  16 bits on the card, below) — the JAX model leaves them to XLA outside any
+  Pallas kernel.
 - ``s2d_stem``/``stem_t2`` are exact TPU re-layouts of the stem
-  convolution (``stdd_tpu/models/i3d.py:61-78,244-307``); the port computes
-  the plain convolution and matches the JAX model with those flags on.
+  convolution (``stdd_tpu/models/i3d.py:61-78,244-307``); the port ignores
+  the flags and matches the JAX model with them on. On the card in bf16 or
+  fp16 it computes every stride-2 convolution over a channel count that is
+  not a multiple of 8 (the stems) as the space-to-depth re-layout
+  (:func:`space_to_depth_conv3d`, counted in ``Conv3dBN.s2d_convs``), and
+  every ``[kt, 1, 1]`` convolution as a 2D one over (T, H·W)
+  (:func:`temporal_conv3d_as_2d`, ``Conv3dBN.temporal_2d_convs``); on the
+  CPU and in float32, the plain convolution.
 - ``fused_s2`` runs each stride-1 block of s2 as one K2 launch
   (``ops/bottleneck.py``) over BN-folded weights, as the JAX model's
   ``ResBlock._fused`` does; the parameters stay where the unfused block
@@ -145,6 +152,72 @@ def int8_conv(x: torch.Tensor, w: torch.Tensor, stride, padding) -> torch.Tensor
     return acc.float() * (sx * sw).view(1, -1, 1, 1, 1)
 
 
+def _s2d_axis(n: int, k: int, p: int) -> Tuple[int, int, int, int]:
+    """One spatial axis (even length ``n``, kernel ``k``, padding ``p``) of a
+    stride-2 convolution over 2-pixel blocks: the zero taps put in front of
+    the kernel so that the padding before the data is whole blocks, the
+    kernel's length in blocks, the blocks of zeros before the data and the
+    input's length in blocks (the data always fits: ``lead + n/2 <= nb``)."""
+    front = p % 2
+    kb = (k + front + 1) // 2
+    return front, kb, (p + front) // 2, (n + 2 * p - k) // 2 + kb
+
+
+def fits_space_to_depth(shape, stride) -> bool:
+    """Whether :func:`space_to_depth_conv3d` computes a convolution of an
+    input of ``shape`` [B, C, T, H, W]: a spatial stride of 2 over an even
+    H and W."""
+    return tuple(stride[1:]) == (2, 2) and shape[3] % 2 == 0 and shape[4] % 2 == 0
+
+
+def space_to_depth_conv3d(x: torch.Tensor, w: torch.Tensor, stride, padding) -> torch.Tensor:
+    """``F.conv3d(x, w, None, stride, padding)`` for a spatial stride of 2
+    (:func:`fits_space_to_depth`), as a stride-1 convolution over 2×2 pixel
+    blocks folded into channels, the re-layout of JAX's ``s2d_stem``
+    (``stdd_tpu/models/i3d.py:60-78``): a [t,7,7] kernel over C channels
+    becomes [t,4,4] over 4C, its 7s zero-padded to 8 in front. The 4C
+    channels are zero-padded to a multiple of 8, which cuDNN's bf16
+    tensor-core engines need; the spatial padding is zero blocks in the
+    input. Exact: every added tap meets a zero. ``x`` [B, C, T, H, W] and
+    ``w`` [Cout, C, kt, kh, kw] in one dtype → ``channels_last_3d``; costs
+    one zero fill and one copy of ``x`` (and of ``w``), differentiable in
+    both."""
+    (fh, kbh, ah, nh), (fw, kbw, aw, nw) = (
+        _s2d_axis(n, k, p) for n, k, p in zip(x.shape[3:], w.shape[3:], padding[1:]))
+    B, C, T, H, W = x.shape
+    cout, _, kt, kh, kw = w.shape
+    cs = _round_up(4 * C, 8)
+    xs = x.new_zeros(B, T, nh, nw, cs)
+    # block channels in (row parity, column parity, C) order, as JAX's _s2d_input
+    dst = xs[..., :4 * C].unflatten(-1, (2, 2, C)).permute(0, 1, 2, 4, 3, 5, 6)
+    dst[:, :, ah:ah + H // 2, :, aw:aw + W // 2].copy_(
+        x.movedim(1, -1).unflatten(2, (H // 2, 2)).unflatten(4, (W // 2, 2)))
+    wp = F.pad(w, (fw, 2 * kbw - kw - fw, fh, 2 * kbh - kh - fh))
+    ws = w.new_zeros(cout, kt, kbh, kbw, cs)
+    ws[..., :4 * C].unflatten(-1, (2, 2, C)).copy_(
+        wp.unflatten(3, (kbh, 2)).unflatten(5, (kbw, 2)).permute(0, 2, 3, 5, 4, 6, 1))
+    return F.conv3d(xs.movedim(-1, 1), ws.movedim(-1, 1), None, (stride[0], 1, 1),
+                    (padding[0], 0, 0))
+
+
+def fits_temporal_2d(kernel, stride, padding) -> bool:
+    """Whether :func:`temporal_conv3d_as_2d` computes a convolution: a
+    kernel over time alone (``[kt, 1, 1]``, kt > 1), spatial stride 1."""
+    return (kernel[0] > 1 and tuple(kernel[1:]) == (1, 1) and tuple(stride[1:]) == (1, 1)
+            and tuple(padding[1:]) == (0, 0))
+
+
+def temporal_conv3d_as_2d(x: torch.Tensor, w: torch.Tensor, stride, padding) -> torch.Tensor:
+    """``F.conv3d(x, w, None, stride, padding)`` for a ``[kt, 1, 1]`` kernel
+    (:func:`fits_temporal_2d`) as a 2D convolution over (T, H·W) by a
+    ``[kt, 1]`` kernel: the same products and sums, laid out as views of a
+    ``channels_last_3d`` ``x`` (NHWC in 2D), in and out."""
+    B, C, T, H, W = x.shape
+    x2 = x.movedim(1, -1).reshape(B, T, H * W, C).permute(0, 3, 1, 2)
+    y = F.conv2d(x2, w.squeeze(-1), None, (stride[0], 1), (padding[0], 0))
+    return y.permute(0, 2, 3, 1).unflatten(2, (H, W)).movedim(-1, 1)
+
+
 class Conv3dBN(nn.Module):
     """conv3d (no bias) → BatchNorm, optionally with a zero-init BN scale
     (the final BN of a bottleneck). ``bn.momentum`` is torch's convention:
@@ -176,12 +249,30 @@ class Conv3dBN(nn.Module):
         if self.zero_init_scale:
             self.bn.weight.zero_()
 
+    # convolutions run by space_to_depth_conv3d / temporal_conv3d_as_2d,
+    # over the process's life
+    s2d_convs = 0
+    temporal_2d_convs = 0
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        c = self.conv
         if self.int8 and not train:
-            y = int8_conv(x, self.conv.weight, self.conv.stride, self.conv.padding)
+            y = int8_conv(x, c.weight, c.stride, c.padding)
             return batch_norm(self.bn, y, False).to(x.dtype)
-        w = self.conv.weight.to(dtype=x.dtype, memory_format=torch.channels_last_3d)
-        x = F.conv3d(x, w, None, self.conv.stride, self.conv.padding)
+        w = c.weight.to(dtype=x.dtype, memory_format=torch.channels_last_3d)
+        # In 16 bits on the card, two shapes send cuDNN's heuristics to a
+        # float32 NCDHW fallback (``indexed_f32f32``) instead of a tensor-core
+        # engine: a channel count that is not a multiple of 8 (the stems' 3)
+        # and, for some widths, a [kt, 1, 1] kernel. Both re-layouts are exact.
+        half = x.is_cuda and x.dtype in (torch.bfloat16, torch.float16)
+        if half and x.shape[1] % 8 and fits_space_to_depth(x.shape, c.stride):
+            Conv3dBN.s2d_convs += 1
+            x = space_to_depth_conv3d(x, w, c.stride, c.padding)
+        elif half and fits_temporal_2d(c.kernel_size, c.stride, c.padding):
+            Conv3dBN.temporal_2d_convs += 1
+            x = temporal_conv3d_as_2d(x, w, c.stride, c.padding)
+        else:
+            x = F.conv3d(x, w, None, c.stride, c.padding)
         return batch_norm(self.bn, x, train)
 
 

@@ -9,7 +9,8 @@ CPU, the FTCN's
 forward and train step on the card against the CPU, the int8 convolutions
 (the int32 GEMM on the card against its plain version, the int8 scorer
 against the CPU's) and a data-parallel step on the card (world 1 over NCCL,
-world 2 over gloo carrying CUDA tensors) against the single-process step.
+world 2 over gloo carrying CUDA tensors) against the single-process step,
+and the bf16 stem and temporal convolutions re-laid for the tensor cores.
 
 Every test here needs a card: each is marked ``cuda`` and skips with the
 reason "no CUDA device" where there is none. The file imports no JAX, so on
@@ -24,6 +25,7 @@ these tests, so float32 convolutions on the card compute in float32.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from stdd_torch.config import I3DConfig, PipelineConfig
 from stdd_torch.eval.scene import Scene
@@ -679,3 +681,45 @@ def test_mesh_world_1_over_nccl_is_the_plain_step(cuda):
     for k in s0:
         if s0[k].is_floating_point():
             torch.testing.assert_close(s1[k], s0[k], rtol=1e-5, atol=1e-6)
+
+
+def test_relaid_convolutions_run_on_the_tensor_cores(cuda):
+    """The bf16 I3D on the card: its stem through ``space_to_depth_conv3d``
+    and a ``[3, 1, 1]`` convolution through ``temporal_conv3d_as_2d`` within
+    bf16's rounding of a float64 convolution of the same bf16 operands, in
+    ``channels_last_3d``; one forward re-lays its stem and every ``[kt, 1,
+    1]`` convolution, once each (``Conv3dBN``'s counters), and its trace
+    holds neither cuDNN's float32 fallback (``indexed_f32f32``) nor its
+    NHWC→NCHW transpose."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stdd_torch.models.i3d import (I3D, Conv3dBN, fits_temporal_2d, space_to_depth_conv3d,
+                                       temporal_conv3d_as_2d)
+
+    bf, cl = torch.bfloat16, torch.channels_last_3d
+    model = I3D(CFG, dtype=bf).to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(1, CFG.num_frames, CFG.crop_size, CFG.crop_size, 3, generator=g, device=cuda)
+    with torch.no_grad():
+        xc = x.to(bf).permute(0, 4, 1, 2, 3)
+        xa = torch.randn(1, 64, CFG.num_frames, 16, 16, generator=g, device=cuda).to(bf)
+        xa = xa.contiguous(memory_format=cl)
+        for conv, fn, xin in ((model.s1.pathway0_stem.conv, space_to_depth_conv3d, xc),
+                              (model.s2.pathway0_res0.branch2.a.conv, temporal_conv3d_as_2d, xa)):
+            w = conv.weight.to(bf, memory_format=cl)
+            y = fn(xin, w, conv.stride, conv.padding)
+            ref = F.conv3d(xin.double(), w.double(), None, conv.stride, conv.padding)
+            assert y.dtype == bf and y.is_contiguous(memory_format=cl)
+            assert float((y.double() - ref).abs().max() / ref.abs().max()) <= 2 ** -7
+        model(x)
+        torch.cuda.synchronize()
+        n0 = Conv3dBN.s2d_convs, Conv3dBN.temporal_2d_convs
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model(x)
+            torch.cuda.synchronize()
+    n_temporal = sum(fits_temporal_2d(m.conv.kernel_size, m.conv.stride, m.conv.padding)
+                     for m in model.modules() if isinstance(m, Conv3dBN))
+    assert n_temporal == 9
+    assert (Conv3dBN.s2d_convs - n0[0], Conv3dBN.temporal_2d_convs - n0[1]) == (1, n_temporal)
+    kernels = [k.name for e in prof.events() for k in e.kernels]
+    assert kernels and not [k for k in kernels if "indexed_f32f32" in k or "nhwcToNchw" in k]
