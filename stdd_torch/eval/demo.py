@@ -281,6 +281,9 @@ def main(argv=None):
     ap.add_argument("--int8", action="store_true",
                     help="int8 dynamic-quant convs for the wide I3D stages "
                          "(s3-s5); scores shift by the quantization error")
+    ap.add_argument("--arch", default="i3d_ori", choices=["i3d_ori", "ftcn_tt"],
+                    help="the served model: AltFreezing's I3D-ResNet50 (default) or "
+                         "FTCN-TT, the temporal-only trunk with the time-transformer head")
     ap.add_argument("--model_crop", type=int, default=None,
                     help="crop size the --jax_ckpt was trained at (default: "
                          "the checkpoint's sidecar metadata, else 224)")
@@ -293,7 +296,8 @@ def main(argv=None):
     videos = collect_videos(args.video_root, args.per_class)
     check_decodable([v[0] for v in videos])
     scorer = load_scorer(args.ckpt, args.jax_ckpt, args.clip_size, args.model_crop,
-                         upload_format=args.upload_format, device=device, int8=args.int8)
+                         arch=args.arch, upload_format=args.upload_format, device=device,
+                         int8=args.int8)
     torch.backends.cudnn.allow_tf32 = False     # the detector's float32, as the app runs it
     detector = yunet_demo_detector(yunet_detector(args.yunet_model, device, 0.5, 128, "demo"))
     dense = args.dense if args.dense is not None else device.type == "cuda"

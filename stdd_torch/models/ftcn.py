@@ -20,6 +20,14 @@ pre-norm ViT (depth 1, 16 heads of 64, MLP 2048) → 1 logit.
   ``torch.Generator``; the ``random`` and ``random_avg`` pools draw their
   interior sites from it too (``random_select``), unless the caller passes
   ``sites``.
+- Served (``runtime/classifier.py``, ``arch="ftcn_tt"``): the eval forward
+  returns the normed cls token beside the logits, runs the stages that
+  ``cfg.int8_stages`` names through the int8 convolutions (s3 and s4 under
+  the scorer's ``int8``), and records the head as the span
+  ``stdd.scorer.head``. ``TemporalConvBN.stride_pools`` counts the max
+  pools that stand in for a removed spatial stride (5 a forward of
+  ``ftcn_tt``: the stem, then s3's and s4's first block, branch and
+  shortcut).
 
 Module names follow the flax tree, including its literal-slash block names
 (``s2/pathway0_res0``) and flax's automatic ``Conv3dBN_0``, so
@@ -36,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import I3DConfig
+from ..utils.spans import span
 from .i3d import (STAGE_DEPTH, Conv3dBN, flax_dropout, flax_reset_, max_pool_3d,
                   stage_temp_kernels)
 from .vit import LN_EPS, TransformerEncoder
@@ -48,16 +57,21 @@ class TemporalConvBN(nn.Module):
     a removed spatial stride (reference temporal_only_conv semantics)."""
 
     def __init__(self, dim_in: int, features: int, temp_kernel: int, spatial_pool: bool,
-                 zero_init_scale: bool = False, bn_eps: float = 1e-5, bn_momentum: float = 0.1):
+                 zero_init_scale: bool = False, bn_eps: float = 1e-5, bn_momentum: float = 0.1,
+                 int8: bool = False):
         super().__init__()
         t = temp_kernel
         self.Conv3dBN_0 = Conv3dBN(dim_in, features, (t, 1, 1), (1, 1, 1), (t // 2, 0, 0),
-                                   zero_init_scale, bn_eps, bn_momentum)
+                                   zero_init_scale, bn_eps, bn_momentum, int8)
         self.spatial_pool = spatial_pool
+
+    # max pools standing in for a removed spatial stride, over the process's life
+    stride_pools = 0
 
     def forward(self, x, train: bool = False):
         x = self.Conv3dBN_0(x, train)
         if self.spatial_pool:
+            TemporalConvBN.stride_pools += 1
             x = max_pool_3d(x, (1, 2, 2), (1, 2, 2), (0, 0, 0))
         return x
 
@@ -66,10 +80,10 @@ class FTCNBlock(nn.Module):
     """Temporal-only bottleneck residual block."""
 
     def __init__(self, dim_in: int, dim_out: int, dim_inner: int, temp_kernel_size: int,
-                 stride: int, bn_eps: float, bn_momentum: float):
+                 stride: int, bn_eps: float, bn_momentum: float, int8: bool = False):
         super().__init__()
         pool = stride == 2
-        bn = dict(bn_eps=bn_eps, bn_momentum=bn_momentum)
+        bn = dict(bn_eps=bn_eps, bn_momentum=bn_momentum, int8=int8)
         self.a = TemporalConvBN(dim_in, dim_inner, temp_kernel_size, False, **bn)
         self.b = TemporalConvBN(dim_inner, dim_inner, 1, pool, **bn)
         self.c = TemporalConvBN(dim_inner, dim_out, 1, False, zero_init_scale=True, **bn)
@@ -157,8 +171,10 @@ class TimeTransformerHead(TransformerEncoder):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                sites: Optional[Sequence[int]] = None) -> torch.Tensor:
-        """``x`` [B, T, H, W, C] → logits [B, num_classes] float32."""
+                sites: Optional[Sequence[int]] = None, return_features: bool = False):
+        """``x`` [B, T, H, W, C] → logits [B, num_classes] float32; with
+        ``return_features`` also the normed cls token [B, C] that
+        ``head_fc`` reads."""
         x = self.pool(x.float(), train, generator, sites)
         B, N, _ = x.shape
         if N != self.num_patches:
@@ -166,7 +182,9 @@ class TimeTransformerHead(TransformerEncoder):
         x = torch.cat([self.cls_token.expand(B, 1, self.dim), x], dim=1) + self.pos_embedding
         x = flax_dropout(x, self.dropout if train else 0.0, generator)
         x = super().forward(x, train, generator)
-        return self.head_fc(self.head_norm(x[:, 0]))
+        feats = self.head_norm(x[:, 0])
+        logits = self.head_fc(feats)
+        return (logits, feats) if return_features else logits
 
 
 def trunk_shape(cfg: I3DConfig) -> Tuple[int, int, int, int]:
@@ -190,7 +208,9 @@ class FTCN(nn.Module):
 
     ``forward(x)``: ``x`` [B, T, H, W, 3] float (already normalized; T and
     H = W as ``cfg.num_frames``/``crop_size``, which fix the head's token
-    count) → logits ``[B, num_classes]`` float32."""
+    count) → logits ``[B, num_classes]`` float32. ``cfg.int8_stages`` (eval
+    only) runs the named stages it has through the int8 convolutions, as
+    the I3D does; the stem never."""
 
     def __init__(self, cfg: Optional[I3DConfig] = None, patch_type: str = "time",
                  random_select: bool = False, patch_k: int = 8,
@@ -217,7 +237,8 @@ class FTCN(nn.Module):
             for bi in range(depths[si]):
                 name = f"s{si + 2}/pathway0_res{bi}"
                 self.add_module(name, FTCNBlock(di if bi == 0 else do, do, dinner, tks[bi],
-                                                c.spatial_strides[si] if bi == 0 else 1, **bn))
+                                                c.spatial_strides[si] if bi == 0 else 1, **bn,
+                                                int8=f"s{si + 2}" in c.int8_stages))
                 self.block_names.append(name)
         # pathway0_pool after s2; stop_point==3 keeps the reference's
         # Identity in its place (:320)
@@ -243,10 +264,14 @@ class FTCN(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                sites: Optional[Sequence[int]] = None) -> torch.Tensor:
+                sites: Optional[Sequence[int]] = None, return_features: bool = False,
+                bottleneck=None):
         """``train``: batch statistics in every BN (moving the running
         ones), the head's dropout and ``random_select``'s draws, all from
-        ``generator``; ``sites`` replaces those draws."""
+        ``generator``; ``sites`` replaces those draws. ``return_features``:
+        (logits, the normed cls token [B, C] float32). ``bottleneck`` is
+        the scorer's K2 entry point, accepted and unused: K2 computes a 3×3
+        middle and these blocks are 1×1×1."""
         x = x.to(self.compute_dtype).permute(0, 4, 1, 2, 3)
         x = x.contiguous(memory_format=torch.channels_last_3d)
         x = F.relu(self.s1(x, train))
@@ -256,4 +281,8 @@ class FTCN(nn.Module):
             if name == self.t_pool_after:
                 tp = self.cfg.t_pool_after_s2
                 x = max_pool_3d(x, (tp, 1, 1), (tp, 1, 1), (0, 0, 0))
-        return self.head(x.permute(0, 2, 3, 4, 1), train, generator, sites)
+        x = x.permute(0, 2, 3, 4, 1)
+        if train:
+            return self.head(x, train, generator, sites, return_features)
+        with span("stdd.scorer.head"):
+            return self.head(x, False, generator, sites, return_features)

@@ -220,6 +220,9 @@ def main(argv=None):
     ap.add_argument("--int8", action="store_true",
                     help="int8 dynamic-quant convs for the wide I3D stages "
                          "(s3-s5); scores shift by the quantization error")
+    ap.add_argument("--arch", default="i3d_ori", choices=["i3d_ori", "ftcn_tt"],
+                    help="the served model: AltFreezing's I3D-ResNet50 (default) or "
+                         "FTCN-TT, the temporal-only trunk with the time-transformer head")
     ap.add_argument("--model_crop", type=int, default=None,
                     help="crop size the --jax_ckpt was trained at (default: "
                          "the checkpoint's sidecar metadata, else 224)")
@@ -269,8 +272,8 @@ def main(argv=None):
 
     check_device(args.device, "app")
     scorer = load_scorer(args.ckpt, args.jax_ckpt, args.clip_size, args.model_crop,
-                         upload_format=args.upload_format, device=args.device,
-                         int8=args.int8)
+                         arch=args.arch, upload_format=args.upload_format,
+                         device=args.device, int8=args.int8)
     # the detector's float32 convolutions run without TF32 (cuDNN's default
     # would take it), the precision its card-vs-CPU parity holds them to;
     # the scorer computes in bf16 and does not read the flag

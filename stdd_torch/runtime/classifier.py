@@ -17,7 +17,15 @@ ignored. With ``I3DConfig(fused_s2=True)`` the s2 blocks run K2
 composes with ``fused_s2`` (K2 keeps s2), ``temporal_only`` (the stages
 that exist) and both upload formats. The JAX loader builds that I3D and
 not the FTCN, so it refuses the checkpoint ``run_i3d --ftcn`` writes (it
-does not cover the model); so does this one.
+does not cover the model); so does this one by default.
+
+``arch="ftcn_tt"`` serves FTCN-TT instead (``models/ftcn.py::FTCN``: the
+temporal-only trunk with the time-transformer head, ``patch_type="time"``),
+through the same ``_score_impl`` and every entry point; its config is
+forced to ``temporal_only``, ``int8`` takes the stages it has (s3, s4),
+``fused_s2`` is refused (K2 computes a 3×3 middle), and
+``from_jax_checkpoint(path, arch="ftcn_tt")`` serves what ``run_i3d --ftcn``
+writes. The default ``"i3d_ori"`` is the I3D above.
 
 With ``round_aligned_u8`` the aligned clip is rounded to uint8 values
 (half to even, as ``jnp.round``) between K1 and the normalize on every
@@ -39,13 +47,17 @@ import numpy as np
 import torch
 
 from ..config import I3DConfig
+from ..models.ftcn import FTCN
 from ..models.i3d import I3D, IMAGENET_MEAN, IMAGENET_STD
 from ..ops.align import clip_geometry, similarity_cv2, std_points
 from ..ops.bottleneck import fused_bottleneck
 from ..ops.warp import pack_warp_params, warp_affine
 from ..utils.checkpoint import load_checkpoint, tolerant_merge
 from ..utils.spans import span
-from ..utils.weights import i3d_flax_to_torch, i3d_torch_to_flax
+from ..utils.weights import flax_to_torch, i3d_flax_to_torch, i3d_torch_to_flax, torch_to_flax
+
+# the served architectures: AltFreezing's I3D-ResNet50 and FTCN-TT
+ARCHS = ("i3d_ori", "ftcn_tt")
 
 
 def yuv420_to_rgb(planar: torch.Tensor) -> torch.Tensor:
@@ -94,11 +106,34 @@ def sidecar_config(path: str) -> Optional[I3DConfig]:
                      temporal_only=bool(meta.get("temporal_only", False)))
 
 
+def arch_config(arch: str, cfg: Optional[I3DConfig]) -> I3DConfig:
+    """The config the scorer builds ``arch`` from: ``cfg`` (default
+    ``I3DConfig()``) as it is for ``i3d_ori``, made ``temporal_only`` for
+    ``ftcn_tt``, whose 1×1×1 blocks K2 cannot run (``fused_s2`` raises)."""
+    cfg = cfg or I3DConfig()
+    if arch == "i3d_ori":
+        return cfg
+    if arch != "ftcn_tt":
+        raise ValueError(f"arch must be one of {ARCHS}, got {arch!r}")
+    if cfg.fused_s2:
+        raise ValueError("fused_s2 runs K2, which computes a 3x3 middle convolution; "
+                         "FTCN-TT's blocks are 1x1x1, so arch='ftcn_tt' takes fused_s2=False")
+    return dataclasses.replace(cfg, temporal_only=True)
+
+
+def build_model(arch: str, cfg: I3DConfig, dtype: torch.dtype = torch.float32) -> torch.nn.Module:
+    """The network of ``arch`` over ``arch_config``'s ``cfg``."""
+    if arch == "ftcn_tt":
+        return FTCN(cfg, patch_type="time", dtype=dtype)
+    return I3D(cfg, dtype=dtype)
+
+
 def load_scorer(ckpt: Optional[str], jax_ckpt: Optional[str], clip_size: int,
-                model_crop: Optional[int] = None, **kw) -> "ClipScorer":
+                model_crop: Optional[int] = None, arch: str = "i3d_ori", **kw) -> "ClipScorer":
     """The scorer of the serving and evaluation CLIs (``--ckpt``,
-    ``--jax_ckpt``, ``--clip_size``, ``--model_crop``): a reference ``.pth``,
-    a trainer checkpoint or, with neither, random weights. ``--clip_size``
+    ``--jax_ckpt``, ``--clip_size``, ``--model_crop``, ``--arch``): a
+    reference ``.pth``, a trainer checkpoint or, with neither, random
+    weights, of the architecture ``arch``. ``--clip_size``
     sets the frames the model takes. A ``--jax_ckpt``'s crop size comes from
     ``--model_crop``, else from its sidecar (with ``temporal_only``), else
     224. The JAX CLIs let the sidecar's clip_size win over ``--clip_size``
@@ -108,16 +143,24 @@ def load_scorer(ckpt: Optional[str], jax_ckpt: Optional[str], clip_size: int,
         raise SystemExit("--ckpt and --jax_ckpt are mutually exclusive")
     cfg = I3DConfig(num_frames=clip_size)
     if ckpt:
-        return ClipScorer.from_torch_checkpoint(ckpt, cfg=cfg, **kw)
+        return ClipScorer.from_torch_checkpoint(ckpt, cfg=cfg, arch=arch, **kw)
     if not jax_ckpt:
-        return ClipScorer.random_init(cfg=cfg, **kw)
+        return ClipScorer.random_init(cfg=cfg, arch=arch, **kw)
     if model_crop:
         cfg = dataclasses.replace(cfg, crop_size=model_crop)
     else:
         meta = sidecar_config(jax_ckpt)
         if meta is not None:
             cfg = dataclasses.replace(meta, num_frames=clip_size)
-    return ClipScorer.from_jax_checkpoint(jax_ckpt, cfg=cfg, **kw)
+    return ClipScorer.from_jax_checkpoint(jax_ckpt, cfg=cfg, arch=arch, **kw)
+
+
+def _bridges(arch: str):
+    """(state dict → flax tree, flax tree → state dict) of ``arch``'s
+    weights: the I3D's own bridge, or the zoo's naming rule for the FTCN."""
+    if arch == "ftcn_tt":
+        return torch_to_flax, lambda v: flax_to_torch(v, what="FTCN")
+    return i3d_torch_to_flax, i3d_flax_to_torch
 
 
 class ProbsHandle:
@@ -156,18 +199,20 @@ class ClipScorer:
       valid [B] bool — padding rows are scored but masked to 0
     → probs [B] float32 (sigmoid of logit ``score_index``).
 
-    The model computes in ``dtype`` (bf16 by default) over float32
-    parameters, on ``device`` ("cuda" unless the caller asks for "cpu").
-    ``round_aligned_u8``: round the aligned pixels to uint8 values before
-    the normalize (the reference's quantization). ``int8``: the eval-only
-    int8 convolutions for s3-s5 when ``cfg`` names no ``int8_stages``
-    (scores shift by the quantization error)."""
+    The model (``arch``: ``ARCHS``) computes in ``dtype`` (bf16 by default)
+    over float32 parameters, on ``device`` ("cuda" unless the caller asks
+    for "cpu"). ``round_aligned_u8``: round the aligned pixels to uint8
+    values before the normalize (the reference's quantization). ``int8``:
+    the eval-only int8 convolutions for s3-s5 (those the model has) when
+    ``cfg`` names no ``int8_stages`` (scores shift by the quantization
+    error)."""
 
     def __init__(self, state_dict, cfg: Optional[I3DConfig] = None,
                  dtype: torch.dtype = torch.bfloat16, score_index: int = 0,
                  round_aligned_u8: bool = False, upload_format: str = "rgb",
-                 device="cuda", int8: bool = False):
-        self.cfg = cfg or I3DConfig()
+                 device="cuda", int8: bool = False, arch: str = "i3d_ori"):
+        self.cfg = arch_config(arch, cfg)
+        self.arch = arch
         if not -self.cfg.num_classes <= score_index < self.cfg.num_classes:
             raise ValueError(f"score_index {score_index} is out of range for "
                              f"{self.cfg.num_classes} classes")
@@ -181,7 +226,7 @@ class ClipScorer:
         self.device = torch.device(device)
         self.dtype = dtype
         with torch.device(self.device):
-            model = I3D(self.cfg, dtype=dtype)
+            model = build_model(arch, self.cfg, dtype)
         model.load_state_dict(state_dict)
         self.model = model.eval().requires_grad_(False)
         self._template = std_points(self.cfg.crop_size, self.device)
@@ -191,14 +236,16 @@ class ClipScorer:
     # -- construction -------------------------------------------------------
 
     @classmethod
-    def random_init(cls, cfg: Optional[I3DConfig] = None, seed: int = 0, **kw):
-        """Scorer over the JAX model's initializers drawn from ``seed``."""
-        cfg = cfg or I3DConfig()
+    def random_init(cls, cfg: Optional[I3DConfig] = None, seed: int = 0,
+                    arch: str = "i3d_ori", **kw):
+        """Scorer over the JAX model's initializers of ``arch`` drawn from
+        ``seed``."""
+        cfg = arch_config(arch, cfg)
         with torch.device("meta"):
-            model = I3D(cfg)
+            model = build_model(arch, cfg)
         model = model.to_empty(device="cpu")
         model.reset_parameters(torch.Generator().manual_seed(seed))
-        return cls(model.state_dict(), cfg=cfg, **kw)
+        return cls(model.state_dict(), cfg=cfg, arch=arch, **kw)
 
     @classmethod
     def from_flax_variables(cls, variables, cfg: Optional[I3DConfig] = None, **kw):
@@ -207,7 +254,8 @@ class ClipScorer:
         return cls(i3d_flax_to_torch(variables), cfg=cfg, **kw)
 
     @classmethod
-    def from_torch_checkpoint(cls, path: str, cfg: Optional[I3DConfig] = None, **kw):
+    def from_torch_checkpoint(cls, path: str, cfg: Optional[I3DConfig] = None,
+                              arch: str = "i3d_ori", **kw):
         """Serve a reference PyTorch ``.pth`` (``{"classifier": state_dict}``,
         ``{"state_dict": …}`` or a bare state dict with keys like
         ``resnet.s2.pathway0_res0.branch2.a.weight``), as
@@ -215,27 +263,37 @@ class ClipScorer:
         through :func:`~stdd_torch.utils.torch_convert.load_reference_checkpoint`
         to a flax tree, then through the weight bridge. A checkpoint that does
         not cover the model, or holds entries it lacks, raises. The file
-        carries no geometry: ``cfg`` (default ``I3DConfig()``) gives it."""
+        carries no geometry: ``cfg`` (default ``I3DConfig()``) gives it.
+        FTCN-TT's ``.pth`` has no converter: ``arch="ftcn_tt"`` raises."""
         from ..utils.torch_convert import load_reference_checkpoint
 
+        if arch != "i3d_ori":
+            raise ValueError(
+                f"{path}: a reference .pth is converted for arch='i3d_ori' only; FTCN-TT's "
+                "conversion waits for a released checkpoint (serve a run_i3d --ftcn "
+                "checkpoint with --jax_ckpt, or random weights)")
         return cls(i3d_flax_to_torch(load_reference_checkpoint(path)), cfg=cfg, **kw)
 
     @classmethod
-    def from_jax_checkpoint(cls, path: str, cfg: Optional[I3DConfig] = None, **kw):
+    def from_jax_checkpoint(cls, path: str, cfg: Optional[I3DConfig] = None,
+                            arch: str = "i3d_ori", **kw):
         """Serve weights the JAX trainer wrote (``{name}_{epoch}.msgpack``
         from ``save_checkpoint``, of either package): ``params`` and
         ``batch_stats`` go through the tolerant merge, so a trailing
         ``opt_state`` or any leaf the model lacks is ignored, and a
         checkpoint that does not cover the model (missing leaves or other
         shapes) raises. Without ``cfg`` the geometry comes from the
-        trainer's ``{path}.json`` sidecar (:func:`sidecar_config`)."""
+        trainer's ``{path}.json`` sidecar (:func:`sidecar_config`).
+        ``arch="ftcn_tt"`` reads the FTCN tree ``run_i3d --ftcn`` writes."""
         if cfg is None:
             cfg = sidecar_config(path) or I3DConfig()
+        cfg = arch_config(arch, cfg)
         with torch.device("meta"):
-            model = I3D(cfg)                       # refuses what the port lacks
+            model = build_model(arch, cfg)          # refuses what the port lacks
+        to_flax, from_flax = _bridges(arch)
         # the merge reads the target's shapes only: zero-stride views, no data
-        target = i3d_torch_to_flax({k: torch.zeros(()).expand(v.shape)
-                                    for k, v in model.state_dict().items()})
+        target = to_flax({k: torch.zeros(()).expand(v.shape)
+                          for k, v in model.state_dict().items()})
         raw = load_checkpoint(path)
         src = {k: raw[k] for k in ("params", "batch_stats") if k in raw}
         merged, report = tolerant_merge(target, src)
@@ -243,7 +301,7 @@ class ClipScorer:
             raise ValueError(
                 f"{path} does not cover the model (cfg={cfg}): "
                 f"missing={report['missing'][:5]} shape_mismatch={report['shape_mismatch'][:5]}")
-        return cls(i3d_flax_to_torch(merged), cfg=cfg, **kw)
+        return cls(from_flax(merged), cfg=cfg, arch=arch, **kw)
 
     # -- device plumbing ------------------------------------------------------
 
@@ -283,9 +341,11 @@ class ClipScorer:
     def _score_impl(self, crops, boxes, lm5, valid, scale=None, warp=warp_affine,
                     bottleneck=fused_bottleneck, with_features: bool = False):
         """Device tensors in, device probs out; with ``with_features`` also
-        the float32 logits [B, C] and pooled features [B, 2048] (not
-        masked). ``warp`` and ``bottleneck`` swap K1 and K2 for their plain
-        versions when checking the kernels on the card."""
+        the float32 logits [B, C] and the features the head's last linear
+        layer reads (not masked): the pooled [B, 2048] of ``i3d_ori``, the
+        normed cls token [B, 1024] of ``ftcn_tt``. ``warp`` and
+        ``bottleneck`` swap K1 and K2 for their plain versions when checking
+        the kernels on the card."""
         with torch.inference_mode():
             # loud format check: a facade that forgot to forward
             # upload_format (packing.upload_format_of) must fail here
@@ -332,9 +392,10 @@ class ClipScorer:
         return np.asarray(self.score_async(crops, boxes, lm5, valid))
 
     def score_with_features(self, crops, boxes, lm5, valid):
-        """(probs [B], logits [B, C], pooled penultimate features [B, 2048]),
-        float32 numpy — the reference's forward hook for its RGB-fusion
-        branch (altfreezing/feature.py:92 AFModel)."""
+        """(probs [B], logits [B, C], penultimate features [B, 2048], or
+        FTCN-TT's normed cls token [B, 1024]), float32 numpy — the
+        reference's forward hook for its RGB-fusion branch
+        (altfreezing/feature.py:92 AFModel)."""
         out = self._score_impl(
             self._to_device(crops), self._to_device(boxes, torch.float32),
             self._to_device(lm5, torch.float32), self._to_device(valid, torch.bool),

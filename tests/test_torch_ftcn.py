@@ -303,6 +303,24 @@ def test_ftcn_checkpoint_is_refused_as_jax_refuses_it(ftcn_run):
     assert "temporal_only=True" in str(e.value)
 
 
+def test_ftcn_checkpoint_serves_with_arch_ftcn_tt(ftcn_run):
+    """``from_jax_checkpoint(path, arch="ftcn_tt")`` serves the checkpoint
+    ``run_i3d --ftcn`` writes: the sidecar's geometry, the trained weights
+    as they were, the FTCN's forward behind the scorer."""
+    out, state = ftcn_run
+    path = os.path.join(out, "i3d_1.msgpack")
+    ts = ClipScorer.from_jax_checkpoint(path, arch="ftcn_tt", dtype=torch.float32,
+                                        device="cpu")
+    assert isinstance(ts.model, FTCN) and (ts.cfg.num_frames, ts.cfg.crop_size) == (4, 32)
+    sd = ts.model.state_dict()
+    for k, t in state.params.items():
+        assert torch.equal(sd[k], t.detach().cpu()), k
+    crops, boxes, lm5, valid = _batch(np.random.RandomState(5))
+    crops, boxes, lm5 = crops[:, :4], boxes[:, :4], lm5[:, :4]
+    probs, logits, feats = ts.score_with_features(crops, boxes, lm5, valid)
+    assert probs[1] == 0.0 and 0.0 < probs[0] < 1.0 and feats.shape == (2, 1024)
+
+
 def test_temporal_only_checkpoint_serves_like_jax(tmp_path):
     """A temporal-only I3D checkpoint with its ``temporal_only`` sidecar
     served by the port's ``from_jax_checkpoint`` (through K1's plain
