@@ -7,8 +7,9 @@ Phases, each failing loudly (any failed check raises, and the script then
 exits non-zero without its result line):
 
 1. device   — the card's name, and its name and power limit from nvidia-smi;
-2. build    — K1 (``stdd_torch/csrc/warp_affine.cu``) and K2
-              (``stdd_torch/csrc/fused_bottleneck.cu``) with nvcc for sm_90a,
+2. build    — K1 (``stdd_torch/csrc/warp_affine.cu``), K2
+              (``stdd_torch/csrc/fused_bottleneck.cu``) and K3
+              (``stdd_torch/csrc/bias_act.cu``) with nvcc for sm_90a,
               one nvcc each, started together, with their ptxas reports; and
               the native host helpers with g++;
 3. K1       — the kernel against its plain PyTorch version on the card, in
@@ -61,6 +62,13 @@ exits non-zero without its result line):
               times at B = 1, 2 and 8 with a cold L2 beside the bound, the
               achieved TFLOP/s, the plain version and the port's unfused
               cuDNN block;
+10b. K3     — BN's shift, the residual and the ReLU in one pass
+              (``stdd_torch/csrc/bias_act.cu``) against its plain PyTorch
+              version, bit for bit, at the I3D's and FTCN-TT's passes at
+              score_dense's batch of 8 and a ragged one, in bf16 and fp16;
+              bf16 times with a cold L2 beside the byte bound, the plain
+              version and today's unfused BN scale, shift, residual add and
+              ReLU as PyTorch runs them (the library time);
 11. fused scorer — a checkpoint written by the port's ``save_checkpoint``
               from the random-init scorer, served by ``from_jax_checkpoint``
               with ``I3DConfig(fused_s2=True)`` at 32×224² in bf16 and
@@ -72,13 +80,14 @@ exits non-zero without its result line):
               300-frame (10 s at 30 fps) I420 track, batch 8, through the
               fused scorer: K2 and K1 launches per forward, dense against
               host-packed windows, windows per second beside the unfused
-              scorer's on the same track;
+              scorer's on the same track, and K3's launches on both runs
+              (40 and 49 a forward; the unfused run is K3's main path);
 13. train   — ``stdd_torch.train.run_i3d.main`` on the card at full width
               (I3D-R50, 32×224², bf16, batch 8) over a synthetic clip tree
               the script writes: two epochs over both AltFreezing phases
               with precise-BN, validation and checkpoints, then a third
               resumed from them; the loss must fall, K1 and K2 stay
-              unlaunched; then on the last checkpoint the step's device
+              unlaunched (K3 runs in validation only); then on the last checkpoint the step's device
               time (CUDA events) and the profiler's busy share, peak
               memory, a frozen group across a phase, precise-BN on the
               stem, the host's cost per clip, and a float32 step on the
@@ -273,12 +282,16 @@ exits non-zero without its result line):
               1); a two-class head scored on ``score_index=1``, float32,
               card against CPU (8×64²).
 
-The K2 phases (10) run before the scorer (4) in the script, as they did,
+The K2 and K3 phases (10, 10b) run before the scorer (4) in the script,
+as the K2 phases did,
 the evaluation phases (21-25) before training (13), and phases 26-29, then
 30-34, then 35-37, then 38-39, then 40, last.
 Every measurement is printed as one JSON object per line; then the
 ``{"kernels": [...]}`` line (with each kernel's launches on every path that
-counted them), the nvidia-smi line, and last
+counted them, each from zero at the path's start; K3's checked at 49 a
+bf16 I3D forward on the engine, server, app, dense and demo paths, at its
+fused_s2 and int8 counts there, and at 0 in training steps), the
+nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or stdd_tpu.
 """
 
@@ -308,6 +321,7 @@ from stdd_torch.config import I3DConfig, PipelineConfig  # noqa: E402
 from stdd_torch.eval.scene import Scene  # noqa: E402
 from stdd_torch.native import available as native_available  # noqa: E402
 from stdd_torch.models.i3d import ResBlock  # noqa: E402
+from stdd_torch.ops import bias_act as k3  # noqa: E402
 from stdd_torch.ops import bottleneck as k2  # noqa: E402
 from stdd_torch.ops.align import STD_POINTS_256  # noqa: E402
 from stdd_torch.ops.bottleneck import fused_bottleneck, fused_bottleneck_reference  # noqa: E402
@@ -809,8 +823,9 @@ ENGINE_KW = dict(crop_buffer=256, q_weighting=False, q_lap_hard=0.0, start_conf=
 ENGINE_WARM, ENGINE_FRAMES = 70, 240
 
 
-def engine_numbers(eng, scored, dt, n_frames, launches, batches) -> dict:
-    """fps, window latency and K1 launches of one timed engine or server run."""
+def engine_numbers(eng, scored, dt, n_frames, launches, batches, k3_launches) -> dict:
+    """fps, window latency and K1 and K3 launches of one timed engine or
+    server run of the bf16 I3D scorer."""
     probs = np.array([p for _, p in scored], np.float64)
     lats = 1000.0 * np.asarray(eng.clip_latencies, np.float64)
     if not scored:
@@ -819,17 +834,21 @@ def engine_numbers(eng, scored, dt, n_frames, launches, batches) -> dict:
         raise AssertionError(f"non-finite scores: {probs}")
     if launches == 0 or launches != batches:
         raise AssertionError(f"K1 launches {launches} != dispatched batches {batches}")
+    if k3_launches != K3_PER_FORWARD["i3d"] * batches:
+        raise AssertionError(f"K3 launches {k3_launches} != {K3_PER_FORWARD['i3d']} × "
+                             f"dispatched batches {batches}")
     return {"frames": n_frames, "fps": n_frames / dt, "clips_scored": len(scored),
             "batches_dispatched": batches, "k1_launches": launches,
-            "k1_launches_per_batch": launches / batches,
+            "k1_launches_per_batch": launches / batches, "k3_launches": k3_launches,
+            "k3_launches_per_batch": k3_launches / batches,
             "window_latency_p50_ms": float(np.percentile(lats, 50)) if lats.size else None,
             "window_latency_p95_ms": float(np.percentile(lats, 95)) if lats.size else None}
 
 
-def drive_engine(scorer, frames, detect_fn) -> dict:
+def drive_engine(scorer, frames, detect_fn, path: str) -> dict:
     """The live path at the bench's operating point (``bench.py:215-263``):
-    warm-up, then ``ENGINE_FRAMES`` timed frames with K1's count zeroed
-    just before and read just after."""
+    warm-up, then ``ENGINE_FRAMES`` timed frames with K1's and K3's counts
+    zeroed just before and read just after (K3's kept under ``path``)."""
     eng = StreamingEngine(scorer, AsyncDetector(detect_fn), cfg=PipelineConfig(**ENGINE_PIPE),
                           **ENGINE_KW)
     if not eng.device_resident:
@@ -841,18 +860,18 @@ def drive_engine(scorer, frames, detect_fn) -> dict:
         eng.flush()
         eng.clip_latencies.clear()
         seq0 = eng._group._next_seq
-        warp_affine.launches = 0                      # the path's run starts here
+        warp_affine.launches = k3.bias_act.launches = 0  # the path's run starts here
         scored = []
         t0 = time.perf_counter()
         for i in range(ENGINE_WARM, ENGINE_WARM + ENGINE_FRAMES):
             scored += eng.step(frames[i])
         scored += eng.flush()
         dt = time.perf_counter() - t0
-        launches = warp_affine.launches                # ... and ends here
+        launches, k3n = warp_affine.launches, k3_read(path)   # ... and ends here
         batches = eng._group._next_seq - seq0
     finally:
         eng.close()
-    res = engine_numbers(eng, scored, dt, ENGINE_FRAMES, launches, batches)
+    res = engine_numbers(eng, scored, dt, ENGINE_FRAMES, launches, batches, k3n)
     res["tracks"] = len(eng.track_clip_scores)
     return res
 
@@ -860,7 +879,7 @@ def drive_engine(scorer, frames, detect_fn) -> dict:
 def phase_engine(scorer, smi, scene, frames):
     pipe = PipelineConfig(**ENGINE_PIPE)
     res = {"phase": "engine", "card": smi, "detector": "scene oracle",
-           **drive_engine(scorer, frames, scene.oracle(pipe.detect_every))}
+           **drive_engine(scorer, frames, scene.oracle(pipe.detect_every), "engine")}
     delta = window_vs_packed_delta(scorer, pipe, ENGINE_KW["crop_buffer"])
     res["window_vs_packed_score_delta"] = delta
     res["window_vs_packed_tol"] = WINDOW_TOL
@@ -1050,7 +1069,7 @@ def phase_engine_detector(scorer, det, smi, scene, frames, engine_res):
     scorer._score_impl = timed
     try:
         res = drive_engine(scorer, frames, detector_fn(det, scene, ENGINE_PIPE["detect_every"],
-                                                       spans))
+                                                       spans), "engine_detector")
     finally:
         del scorer._score_impl
     det_ms = [e - s for s, e in spans.ms("detect")]
@@ -1102,7 +1121,7 @@ def run_server(scorer, smi, pipe, scenes, frames, n, wait):
 
         group._dispatch = spy
         seq0 = group._next_seq
-        warp_affine.launches = 0                       # the server's run starts here
+        warp_affine.launches = k3.bias_act.launches = 0  # the server's run starts here
         t0 = time.perf_counter()
         for i in range(SERVER_FRAMES):
             for k, sid in enumerate(sids):
@@ -1111,12 +1130,13 @@ def run_server(scorer, smi, pipe, scenes, frames, n, wait):
             got[sid] += server.flush(sid)
         dt = time.perf_counter() - t0
         launches = warp_affine.launches                # ... and ends here
+        k3n = k3_read(f"server_{n}calls_{wait}")
         batches = group._next_seq - seq0
         scored = [x for sid in sids for x in got[sid]]
         res = {"phase": "server", "card": smi, "streams": n,
                "max_batch_wait_frames": wait,
                **engine_numbers(server._root, scored, dt, n * SERVER_FRAMES, launches,
-                                batches)}
+                                batches, k3n)}
     finally:
         server.close()
     res.update({"frames_per_stream": SERVER_FRAMES,
@@ -1188,11 +1208,11 @@ def phase_app(scorer, det, smi, scene, frames) -> dict:
     try:
         eng.warmup()
         seq0 = eng._group._next_seq
-        warp_affine.launches = 0                       # the app's run starts here
+        warp_affine.launches = k3.bias_act.launches = 0  # the app's run starts here
         t0 = time.perf_counter()
         ready, fake = run_loop(app, iter(frames[:APP_FRAMES]))
         dt = time.perf_counter() - t0
-        launches = warp_affine.launches                # ... and ends here
+        launches, k3n = warp_affine.launches, k3_read("app")   # ... and ends here
         batches = eng._group._next_seq - seq0
     finally:
         eng.close()
@@ -1200,12 +1220,13 @@ def phase_app(scorer, det, smi, scene, frames) -> dict:
     res = {"phase": "app", "card": smi, "detections_real": False, "frames": APP_FRAMES,
            "fps": APP_FRAMES / dt, "meeting_ready": bool(ready), "meeting_fake": bool(fake),
            "scored_tracks": scores, "k1_launches": launches, "batches_dispatched": batches,
-           "frames_seen": app.frames_seen}
+           "k3_launches": k3n, "frames_seen": app.frames_seen}
     emit(res)
     flat = [p for s in scores.values() for p in s]
-    if not (ready and flat and np.isfinite(flat).all() and launches == batches > 0):
+    if not (ready and flat and np.isfinite(flat).all() and launches == batches > 0
+            and k3n == K3_PER_FORWARD["i3d"] * batches):
         raise AssertionError(f"app: ready {ready}, scores {scores}, K1 launches {launches}, "
-                             f"batches {batches}")
+                             f"K3 launches {k3n}, batches {batches}")
     return res
 
 
@@ -1335,6 +1356,113 @@ def phase_k2_time(dev) -> dict:
     return timings
 
 
+# -- phase 10b: K3 ---------------------------------------------------------------
+
+# (name, y shape [B, C, T, H, W], residual, relu): the I3D's and FTCN-TT's
+# passes at score_dense's batch of 8 (the stem; s2's last convolution with
+# its residual, the table's row; s5's; FTCN-TT's s4 stride-pooled
+# shortcut), and a ragged one (C = 24: 3 vectors of 8 channels)
+K3_CASES = (("i3d_stem", (8, 64, 32, 112, 112), False, True),
+            ("i3d_s2_last", (8, 256, 32, 56, 56), True, True),
+            ("i3d_s5_last", (8, 2048, 16, 7, 7), True, True),
+            ("ftcn_s3_b", (8, 128, 16, 28, 28), False, True),
+            ("ragged_c24", (3, 24, 5, 7, 9), True, True))
+K3_ROW = "i3d_s2_last"
+
+
+def k3_operands(dev, shape, residual, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cl = torch.channels_last_3d
+    y = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype).contiguous(memory_format=cl)
+    b = torch.randn(shape[1], generator=g, device=dev)
+    r = (torch.randn(shape, generator=g, device=dev).to(dtype).contiguous(memory_format=cl)
+         if residual else None)
+    return y, b, r
+
+
+def phase_k3(dev):
+    """K3 against its plain version, bit for bit, at every case in bf16 and
+    fp16; then, in bf16 with a cold L2, K3, its plain version and today's
+    unfused BN (``x · inv + shift`` in the activation's dtype), residual add
+    and ReLU as PyTorch runs them, beside the byte bound. → (max |Δ|,
+    timings by case)."""
+    max_err = 0.0
+    for dtype in (torch.bfloat16, torch.float16):
+        for i, (name, shape, residual, relu) in enumerate(K3_CASES):
+            y, b, r = k3_operands(dev, shape, residual, dtype, SEED + 30 + i)
+            want = k3.bias_act_reference(y.clone(), b, r, relu)
+            n0 = k3.bias_act.launches
+            got = k3.bias_act(y, b, r, relu)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            emit({"phase": "k3_check", "case": name, "shape": list(shape), "residual": residual,
+                  "relu": relu, "dtype": str(dtype).replace("torch.", ""),
+                  "bit_exact": bool(torch.equal(got, want)), "max_abs_err": err})
+            if not torch.equal(got, want) or k3.bias_act.launches != n0 + 1:
+                raise AssertionError(f"K3 {name}/{dtype}: not bit-exact (max |Δ| {err}) or "
+                                     f"not launched once")
+            max_err = max(max_err, err)
+            del y, b, r, want, got
+    timings = {}
+    for i, (name, shape, residual, relu) in enumerate(K3_CASES[:-1]):
+        numel = int(np.prod(shape))
+        nbytes = numel * 2 * (3 if residual else 2) + shape[1] * 4
+        n_sets = -(-4 * L2_BYTES // nbytes) + 1
+        sets = []
+        for k in range(n_sets):
+            y, b, r = k3_operands(dev, shape, residual, torch.bfloat16, SEED + 40 + k)
+            # today's BN, from a scale and shift that give the same y + b
+            inv = torch.ones_like(b).bfloat16().view(-1, 1, 1, 1)
+            sets.append((y, b, r, inv, b.bfloat16().view(-1, 1, 1, 1)))
+        reps = 4 * n_sets
+
+        def library(y, b, r, inv, shift):
+            z = y * inv + shift
+            return F.relu(z if r is None else r + z) if relu else (z if r is None else r + z)
+
+        ms = cold_ms(lambda y, b, r, *_: k3.bias_act(y, b, r, relu), sets, reps)
+        plain_ms = cold_ms(lambda y, b, r, *_: k3.bias_act_reference(y, b, r, relu), sets, reps)
+        library_ms = cold_ms(library, sets, reps)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                             bound_by="bytes")
+        emit({"phase": "k3_time", "case": name, "shape": list(shape), "residual": residual,
+              "relu": relu, "dtype": "bfloat16", "bytes": nbytes, **timings[name],
+              "roofline_share": bound_ms / ms, "achieved_tb_s": nbytes / ms * 1e-9,
+              "l2": "cold", "input_sets": n_sets, "launches_per_round": reps,
+              "library": "y * inv + shift, (r + ...), relu: today's unfused eval BN, "
+                         "residual add and ReLU"})
+        del sets
+    return max_err, timings
+
+
+# K3's launches on each path, counted from zero at the path's start (where
+# K1's and K2's counts are zeroed) to its end; the kernels line reports them
+k3_by_path = {}
+# K3 passes in one bf16 eval forward: the I3D-R50's 16 blocks × 3 and its
+# stem; with fused_s2, s2's 3 blocks run K2 instead; with int8 s3-s5, only
+# the stem and s2 fold; with both, only the stem
+K3_PER_FORWARD = {"i3d": 49, "fused_s2": 40, "int8": 10, "fused_s2_int8": 1}
+
+
+def k3_read(path: str, n=None) -> int:
+    """K3's launches since the path's start (or ``n``, the count a helper
+    read at the path's end), kept under ``path``."""
+    n = k3_by_path[path] = k3.bias_act.launches if n is None else n
+    return n
+
+
+def k3_entry(err, timings) -> dict:
+    """The kernels line's K3 entry: its launches on the main path (the bf16
+    I3D's dense scoring) and on every other path."""
+    t = timings[K3_ROW]
+    return {"name": "bias_act", "route": "cuda", "source": "stdd_torch/csrc/bias_act.cu",
+            "replaces": None, "launches": k3_by_path["dense"],
+            "launches_by_phase": dict(k3_by_path), "max_abs_err": err, "case": K3_ROW,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+
 # -- phase 11: the fused-s2 scorer from a checkpoint ----------------------------
 
 def phase_fused_scorer(dev, scorer, ckpt_dir: str):
@@ -1443,14 +1571,18 @@ def phase_dense(fused16, unfused16, smi):
     for sc in (fused16, unfused16):                            # warm-up at this batch
         sc.score_dense(frames, boxes, lm5, starts[:batch], batch=batch)
     torch.cuda.synchronize()
-    fused_bottleneck.launches = warp_affine.launches = 0      # the K2 path's run starts here
+    # the K2 path's run starts here
+    fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
     t0 = time.perf_counter()
     probs = fused16.score_dense(frames, boxes, lm5, starts, batch=batch)
     dt = time.perf_counter() - t0
     k2_launches, k1_launches = fused_bottleneck.launches, warp_affine.launches   # ... ends here
+    k3_fused = k3_read("dense_fused_s2")
+    k3.bias_act.launches = 0                            # the main path's run starts here
     t0 = time.perf_counter()
     probs_unfused = unfused16.score_dense(frames, boxes, lm5, starts, batch=batch)
     dt_unfused = time.perf_counter() - t0
+    k3_dense = k3_read("dense")                           # ... and ends here
     # the same windows gathered on the host and uploaded batch by batch
     packed = []
     for i in range(0, len(starts), batch):
@@ -1463,7 +1595,8 @@ def phase_dense(fused16, unfused16, smi):
     delta = float(np.abs(probs - np.concatenate(packed)).max())
     emit({"phase": "dense", "card": smi, "track_frames": N, "clip": T, "stride": 1,
           "windows": len(starts), "batch": batch, "forwards": forwards,
-          "k2_launches": k2_launches, "k1_launches": k1_launches, "seconds": dt,
+          "k2_launches": k2_launches, "k1_launches": k1_launches,
+          "k3_launches_fused": k3_fused, "k3_launches_unfused": k3_dense, "seconds": dt,
           "windows_per_s": len(starts) / dt, "seconds_unfused": dt_unfused,
           "windows_per_s_unfused": len(starts) / dt_unfused,
           "probs_min_max": [float(probs.min()), float(probs.max())],
@@ -1474,6 +1607,10 @@ def phase_dense(fused16, unfused16, smi):
     if k2_launches != 3 * forwards or k1_launches != forwards:
         raise AssertionError(f"dense: K2 launches {k2_launches} (want {3 * forwards}), "
                              f"K1 launches {k1_launches} (want {forwards})")
+    want3 = (K3_PER_FORWARD["fused_s2"] * forwards, K3_PER_FORWARD["i3d"] * forwards)
+    if (k3_fused, k3_dense) != want3:
+        raise AssertionError(f"dense: K3 launches {k3_fused} fused_s2 / {k3_dense} unfused "
+                             f"(want {want3})")
     if not delta <= DENSE_TOL:
         raise AssertionError(f"dense vs host-packed |Δp| {delta} > {DENSE_TOL}")
     return k2_launches, k1_launches
@@ -1655,11 +1792,13 @@ def phase_train(dev, smi: str, tmp_dir: str):
     argv = ["--data", tree, "--out", out, "--clip_size", str(TRAIN_T), "--crop_size",
             str(TRAIN_S), *TRAIN_ARGS, "--device", str(dev)]
     os.environ["STDD_TRAIN_TIMING"] = "1"
-    fused_bottleneck.launches = warp_affine.launches = 0        # the training path starts here
+    # the training path starts here
+    fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
     t0 = time.perf_counter()
     state = run_i3d.main(argv + ["--epochs", "2"])
     seconds_2 = time.perf_counter() - t0
     k1, k2 = warp_affine.launches, fused_bottleneck.launches    # ... ends here
+    k3_run = k3_read("train")                # its validation scores in bf16 eval: folded
     steps_per_epoch = state.step // 2
     t0 = time.perf_counter()
     resumed = run_i3d.main(argv + ["--epochs", "3", "--resume"])
@@ -1685,6 +1824,7 @@ def phase_train(dev, smi: str, tmp_dir: str):
     mean, std = (torch.as_tensor(a, device=dev) for a in (IMAGENET_MEAN, IMAGENET_STD))
     x = (torch.from_numpy(clips).to(dev).float() - mean) / std
     y = torch.from_numpy(ys).to(dev)
+    k3.bias_act.launches = 0                                    # the steps alone start here
     step_ms, peak, st = timed_steps(step, st, x, y, TRAIN_TIMED_STEPS)
     # the device's busy time in three steps, from the profiler's kernel times
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -1706,6 +1846,7 @@ def phase_train(dev, smi: str, tmp_dir: str):
         if not all(torch.equal(st.params[k], b) for k, b in zip(keys, before)):
             raise AssertionError(f"train: a {group} parameter moved while frozen")
         frozen_checked += len(keys)
+    k3_steps = k3_read("train_steps")                           # ... and end here
     stem = st.batch_stats["s1.pathway0_stem.bn.running_mean"]
     stem_before = stem.clone()
     precise_bn_update(model, st, [x, x.flip(0)])
@@ -1720,7 +1861,8 @@ def phase_train(dev, smi: str, tmp_dir: str):
          "steps_per_epoch": steps_per_epoch, "epoch_loss": losses, "val_auc": aucs,
          "best": {k: best[k] for k in ("best_epoch", "best_val_auc")},
          "seconds_two_epochs": seconds_2, "seconds_resumed_epoch": seconds_resume,
-         "k1_launches": k1, "k2_launches": k2,
+         "k1_launches": k1, "k2_launches": k2, "k3_launches": k3_run,
+         "k3_launches_steps": k3_steps,
          "step_ms_median": float(np.median(step_ms)),
          "step_ms_p90": float(np.percentile(step_ms, 90)),
          "clips_per_s": 8 * 1000.0 / float(np.median(step_ms)),
@@ -1748,6 +1890,8 @@ def phase_train(dev, smi: str, tmp_dir: str):
                              f"{resumed.opt_state[-1]['count']} (want {3 * steps_per_epoch})")
     if k1 or k2:
         raise AssertionError(f"train: K1/K2 launched {k1}/{k2} times on the training path")
+    if k3_steps:
+        raise AssertionError(f"train: K3 launched {k3_steps} times in training steps")
     if not stem_moved > 0:
         raise AssertionError("train: precise-BN left the stem's statistics where they were")
     for key, tol in TRAIN_F32_TOLS.items():
@@ -1912,11 +2056,13 @@ def phase_dual(dev, smi: str, tmp_dir: str) -> None:
     get_logger("train").addHandler(clock)
     argv = ["--data", tree, "--out", out, "--epochs", str(DUAL_EPOCHS),
             "--epoch_samples", str(DUAL_EPOCH_SAMPLES), "--seed", str(SEED), "--device", str(dev)]
-    fused_bottleneck.launches = warp_affine.launches = 0        # the dual path starts here
+    # the dual path starts here
+    fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
     t0 = time.perf_counter()
     res = run_dual.main(argv)
     seconds = time.perf_counter() - t0
     k1, k2 = warp_affine.launches, fused_bottleneck.launches    # ... ends here
+    k3n = k3_read("dual")
     get_logger("train").removeHandler(clock)
     history = res["history"]
     # run_dual caps an epoch at the training split's size: the tree must hold
@@ -1993,7 +2139,8 @@ def phase_dual(dev, smi: str, tmp_dir: str) -> None:
          "temperature": res["temperature"], "threshold_calibrated": res["threshold_calibrated"],
          "test_clip_auc": report["clip_metrics"]["auc_roc"],
          "test_video_auc": report["video_metrics"]["auc_roc"],
-         "k1_launches": k1, "k2_launches": k2, "reload_max_abs_logit_err": reload_err,
+         "k1_launches": k1, "k2_launches": k2, "k3_launches": k3n,
+         "reload_max_abs_logit_err": reload_err,
          "step_ms_median": float(np.median(step_ms)),
          "step_ms_p90": float(np.percentile(step_ms, 90)),
          "clips_per_s": DUAL_BATCH * 1000.0 / float(np.median(step_ms)),
@@ -2002,8 +2149,8 @@ def phase_dual(dev, smi: str, tmp_dir: str) -> None:
          "device_busy_share": busy_ms / prof_wall_ms, "kernels_per_step": n_kernels,
          "top_kernels_ms_per_step": top}
     emit(r)
-    if k1 or k2:
-        raise AssertionError(f"dual: K1/K2 launched {k1}/{k2} times on the dual path")
+    if k1 or k2 or k3n:
+        raise AssertionError(f"dual: K1/K2/K3 launched {k1}/{k2}/{k3n} times on the dual path")
     if steps_per_epoch != DUAL_EPOCH_SAMPLES // DUAL_BATCH:
         raise AssertionError(f"dual: {steps_per_epoch} steps an epoch; the tree is too small")
     if len(history) != DUAL_EPOCHS:
@@ -2181,10 +2328,12 @@ def phase_preprocess(dev, smi: str, tmp_dir: str, au):
     tree = os.path.join(tmp_dir, "clips")
     writer = pre.ClipWriter(tree)
     torch.cuda.synchronize()
-    fused_bottleneck.launches = warp_affine.launches = 0      # the preprocess path starts here
+    # the preprocess path starts here
+    fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
     perf = pipe.process_video(video, writer, "scene")
     writer.close()
     k1, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+    k3n = k3_read("preprocess")
     with open(os.path.join(tree, "master_clip_log.csv")) as f:
         log = list(csv.DictReader(f))
     tracks = sorted({r["track_id"] for r in log})
@@ -2219,12 +2368,13 @@ def phase_preprocess(dev, smi: str, tmp_dir: str, au):
          "dataset_clips": len(ds), "dual_logits_finite": bool(np.isfinite(logits).all()),
          "dual_logits_shape": list(logits.shape), "detections_real": False,
          "detector": "YuNet-shaped graph, random weights (device cost); BenchScene.oracle rows",
-         "au_weights": "random", "k1_launches": k1, "k2_launches": k2,
+         "au_weights": "random", "k1_launches": k1, "k2_launches": k2, "k3_launches": k3n,
          "cli_seconds": cli_s, "cli_frames": sum(l["frames"] for l in cli_logs),
          "cli_clips": sum(l["clips"] for l in cli_logs), "writer_errors": len(writer.errors)}
     emit(r)
-    if k1 or k2:
-        raise AssertionError(f"preprocess: K1/K2 launched {k1}/{k2} times on the preprocess path")
+    if k1 or k2 or k3n:
+        raise AssertionError(f"preprocess: K1/K2/K3 launched {k1}/{k2}/{k3n} times on the "
+                             "preprocess path")
     if perf["frames"] != PRE_FRAMES or len(tracks) != PRE_FACES or perf["clips"] != want_clips:
         raise AssertionError(f"preprocess: {perf['frames']} frames, {len(tracks)} tracks, "
                              f"{perf['clips']} clips (want {PRE_FRAMES}, {PRE_FACES}, {want_clips})")
@@ -2252,11 +2402,11 @@ def phase_landmarker_train(dev, smi: str):
     from stdd_torch.train import optim
     from stdd_torch.train import train_landmarker as tl
 
-    fused_bottleneck.launches = warp_affine.launches = 0
+    fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
     t0 = time.perf_counter()
     lm = tl.train(steps=LMT_STEPS, batch=LMT_BATCH, log_every=1, verbose=True, device=dev)
     seconds = time.perf_counter() - t0
-    k1, k2 = warp_affine.launches, fused_bottleneck.launches
+    k1, k2, k3n = warp_affine.launches, fused_bottleneck.launches, k3_read("landmarker_train")
     hist = lm.history
     net = lm.net.train()
     tx = optim.adam(optim.cosine_decay_schedule(3e-4, 1000, alpha=0.1))
@@ -2295,12 +2445,13 @@ def phase_landmarker_train(dev, smi: str):
          "faces_per_s": LMT_BATCH * 1000.0 / float(np.median(step_ms)),
          "max_memory_allocated_gib": peak / 2 ** 30, "device_busy_share": busy_ms / prof_wall_ms,
          "kernels_per_step": n_kernels, "top_kernels_ms_per_step": top,
-         "holdout_error": tl.holdout_error(lm), "k1_launches": k1, "k2_launches": k2}
+         "holdout_error": tl.holdout_error(lm), "k1_launches": k1, "k2_launches": k2,
+         "k3_launches": k3n}
     emit(r)
     if not np.isfinite(hist).all() or not last < first:
         raise AssertionError(f"landmarker_train: the loss did not fall ({first} → {last})")
-    if k1 or k2:
-        raise AssertionError(f"landmarker_train: K1/K2 launched {k1}/{k2} times")
+    if k1 or k2 or k3n:
+        raise AssertionError(f"landmarker_train: K1/K2/K3 launched {k1}/{k2}/{k3n} times")
 
 
 # -- phases 21-23: the offline evaluation harnesses --------------------------------
@@ -2411,7 +2562,8 @@ def phase_harness(dev, smi: str, scorer, videos, tmp_dir: str, onnx: str, ref_pa
         eng.warmup()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        fused_bottleneck.launches = warp_affine.launches = 0      # the harness path starts here
+        # the harness path starts here
+        fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
         t0 = time.perf_counter()
         for path, gt, scene in videos:
             oracle.update(scene=scene, calls=0)
@@ -2425,6 +2577,7 @@ def phase_harness(dev, smi: str, scorer, videos, tmp_dir: str, onnx: str, ref_pa
             rows.append(r)
         wall = time.perf_counter() - t0
         k1, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+        k3n = k3_read("harness")
     finally:
         eng.close()
     # the host's share that no engine clock covers: decoding one video alone
@@ -2454,6 +2607,7 @@ def phase_harness(dev, smi: str, scorer, videos, tmp_dir: str, onnx: str, ref_pa
            "seconds": wall, "windows_scored": windows, "windows_per_s": windows / wall,
            "t_decode_alone_one_video": decode_s, "frames_decoded_alone": n_read,
            "batches_dispatched": batches, "k1_launches": k1, "k2_launches": k2,
+           "k3_launches": k3n,
            "summary": {k: summary[k] for k in ("accuracy", "auc_roc", "mean_fps",
                                                 "mean_latency_ms_clip")}}
     emit(res)
@@ -2524,11 +2678,13 @@ def phase_demo(dev, smi: str, scorer, frames, cache):
     runs = {}
     for name, dense in (("dense", True), ("packed", False)):
         torch.cuda.synchronize()
-        fused_bottleneck.launches = warp_affine.launches = 0     # the demo's path starts here
+        # the demo's path starts here
+        fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
         r = demo.eval_video(scorer, frames, detect_res=cache[0], lm68s=cache[1], clip_size=T,
                             crop_buffer=HARNESS_ARGS["crop_buffer"], batch=DEMO_BATCH,
                             dense=dense)
         runs[name] = (r, warp_affine.launches, fused_bottleneck.launches)   # ... ends here
+        k3_read(f"demo_{name}")
     (rd, k1d, k2d), (rp, k1p, k2p) = runs["dense"], runs["packed"]
     # the packed path's host share: packing its batches alone
     clips = demo.build_clips(*cache, frames, T)
@@ -2547,7 +2703,9 @@ def phase_demo(dev, smi: str, scorer, frames, cache):
               for k in ("clips", "video_score", "t_detect", "t_aligninfer", "fps_model",
                         "fps_end2end")},
            "t_pack_alone_packed": pack_s, "k1_launches_dense": k1d, "k1_launches_packed": k1p,
-           "k2_launches": k2d + k2p, "dense_vs_packed_dp": dp, "tol": DENSE_TOL}
+           "k2_launches": k2d + k2p, "k3_launches_dense": k3_by_path["demo_dense"],
+           "k3_launches_packed": k3_by_path["demo_packed"], "dense_vs_packed_dp": dp,
+           "tol": DENSE_TOL}
     emit(res)
     preds = np.asarray(rd["preds"] + rp["preds"])
     if not rd["clips"] == rp["clips"] == want:
@@ -2560,6 +2718,10 @@ def phase_demo(dev, smi: str, scorer, frames, cache):
     if k1d != forwards or k1p != forwards or k2d or k2p:
         raise AssertionError(f"demo: K1 launches {k1d} / {k1p} (want {forwards} each), "
                              f"K2 {k2d + k2p}")
+    k3d, k3p = k3_by_path["demo_dense"], k3_by_path["demo_packed"]
+    if not k3d == k3p == K3_PER_FORWARD["i3d"] * forwards:
+        raise AssertionError(f"demo: K3 launches {k3d} / {k3p} (want "
+                             f"{K3_PER_FORWARD['i3d'] * forwards} each)")
     return {"demo_dense": k1d, "demo_packed": k1p}, {"demo_dense": k2d, "demo_packed": k2p}
 
 
@@ -2645,17 +2807,19 @@ def phase_capstone(dev, smi: str, tmp_dir: str):
     synth_e2e.FULL = dict(full, dual_epochs=CAPSTONE_DUAL_EPOCHS)
     try:
         torch.cuda.synchronize()
-        fused_bottleneck.launches = warp_affine.launches = 0   # the capstone's path starts here
+        # the capstone's path starts here
+        fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
         t0 = time.perf_counter()
         res = synth_e2e.main(CAPSTONE_ARGS + ["--out", out, "--device", str(dev)])
         seconds = time.perf_counter() - t0
         k1, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+        k3n = k3_read("capstone")
     finally:
         harness.run_video, harness.build_engine, synth_e2e.FULL = run_video, build_engine, full
     emit({"phase": "capstone", "card": smi, "argv": CAPSTONE_ARGS,
           "dual_epochs": CAPSTONE_DUAL_EPOCHS, "seconds": seconds, "result": res,
           "k1_launches": k1, "k1_warmup_launches": count["warmup_k1"],
-          "scored_batches": count["batches"], "k2_launches": k2})
+          "scored_batches": count["batches"], "k2_launches": k2, "k3_launches": k3n})
     aucs = [res.get(k) for k in ("video_auc", "dual_video_auc", "dual_clip_auc")]
     if "dual_error" in res:
         raise AssertionError(f"capstone: phase 5 failed: {res['dual_error']}")
@@ -2804,7 +2968,8 @@ def phase_fusion(dev, smi: str, out: str, res: dict, tmp_dir: str):
     feat_dir = os.path.join(tmp_dir, "rgb_features")
     os.makedirs(feat_dir)
     torch.cuda.synchronize()
-    fused_bottleneck.launches = warp_affine.launches = 0          # the fusion path starts here
+    # the fusion path starts here
+    fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
     paths, batches = dump_eval_features(dev, out, res, feat_dir)
     clips = load_feature_clips(paths, FUSION_T)
     dump_s = time.perf_counter() - t_start
@@ -2887,6 +3052,7 @@ def phase_fusion(dev, smi: str, out: str, res: dict, tmp_dir: str):
 
     pre_ms = device_step_ms(pretrain_step, FUSION_TIMED_STEPS)
     k1, k2 = warp_affine.launches, fused_bottleneck.launches      # ... ends here
+    k3_read("fusion")
     hist = pre["history"]
     emit({"phase": "fusion", "card": smi, "feature_videos": len(paths),
           "feature_clips_scored": int(sum(len(np.load(p)["feats"]) for p in paths)),
@@ -2961,18 +3127,21 @@ def run_app_over(scorer, frames, rows) -> dict:
     try:
         eng.warmup()
         seq0 = eng._group._next_seq
-        warp_affine.launches = fused_bottleneck.launches = 0      # the run starts here
+        # the run starts here
+        warp_affine.launches = fused_bottleneck.launches = k3.bias_act.launches = 0
         t0 = time.perf_counter()
         ready, fake = run_loop(app, frames)
         dt = time.perf_counter() - t0
         launches, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+        k3n = k3.bias_act.launches
         batches = eng._group._next_seq - seq0
     finally:
         eng.close()
     return {"seconds": dt, "fps": app.frames_seen / dt, "frames_seen": app.frames_seen,
             "meeting_ready": bool(ready), "meeting_fake": bool(fake),
             "scores": {int(t): [float(p) for p in v] for t, v in app.running_scores.items()},
-            "k1_launches": launches, "k2_launches": k2, "batches_dispatched": batches}
+            "k1_launches": launches, "k2_launches": k2, "k3_launches": k3n,
+            "batches_dispatched": batches}
 
 
 def phase_app_file(scorer, smi: str, tmp_dir: str) -> int:
@@ -2996,6 +3165,7 @@ def phase_app_file(scorer, smi: str, tmp_dir: str) -> int:
     decode_s = time.perf_counter() - t0
     fil = run_app_over(scorer, sources.iter_video_file(path), rows)
     mem = run_app_over(scorer, iter(decoded), rows)
+    k3_read("app_file", fil["k3_launches"])
     same_tracks = sorted(fil["scores"]) == sorted(mem["scores"]) and all(
         len(fil["scores"][t]) == len(mem["scores"][t]) for t in fil["scores"])
     dp = max((abs(a - b) for t in fil["scores"] if same_tracks
@@ -3016,6 +3186,7 @@ def phase_app_file(scorer, smi: str, tmp_dir: str) -> int:
          "decode_ms_per_frame": 1000.0 * decode_s / len(decoded),
          "k1_launches": fil["k1_launches"], "batches_dispatched": fil["batches_dispatched"],
          "k1_launches_memory": mem["k1_launches"], "k2_launches": fil["k2_launches"],
+         "k3_launches": fil["k3_launches"],
          "frames_seen": fil["frames_seen"],
          "scored_tracks": fil["scores"], "file_vs_memory_dp": dp, "tol": APP_FILE_TOL,
          "meeting_ready": fil["meeting_ready"], "meeting_fake": fil["meeting_fake"],
@@ -3150,11 +3321,13 @@ def phase_regen(dev, smi: str, tmp_dir: str):
     regen.read_frames_strided = oracle.read
     try:
         torch.cuda.synchronize()
-        fused_bottleneck.launches = warp_affine.launches = 0      # the regen path starts here
+        # the regen path starts here
+        fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
         t0 = time.perf_counter()
         data = ds.load_all()
         load_s = time.perf_counter() - t0
         k1, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+        k3_read("regen")
         # item 0 again on the card and on the CPU models, from fresh datasets
         # of the same seed (the same frames and draws)
         one = {}
@@ -3265,13 +3438,15 @@ def phase_vox(dev, smi: str, tmp_dir: str, regen_data: dict):
     lengths = np.concatenate([b[1] for b in batches]).astype(np.int64)
     disc = LMKDisc(seed=SEED)
     torch.cuda.synchronize()
-    fused_bottleneck.launches = warp_affine.launches = 0      # the vox path starts here
+    # the vox path starts here
+    fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
     t0 = time.perf_counter()
     pre = pretrain_lmk(disc, seqs, lengths, epochs=1, batch=VOX_BATCH, log=lambda s: None,
                        device=dev)
     torch.cuda.synchronize()
     pre_s = time.perf_counter() - t0
     k1, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+    k3_read("vox")
     tx = adamw(3e-4, WEIGHT_DECAY)
     named = dict(disc.named_parameters())
     pstate = {"s": TrainState(named, {}, tx.init(named), 0)}
@@ -3396,10 +3571,12 @@ def phase_data_file(dev, smi: str, scorer) -> dict:
     with tempfile.TemporaryDirectory() as tmp_dir:
         data, k1r, k2r = phase_regen(dev, smi, tmp_dir)
         k1v, k2v = phase_vox(dev, smi, tmp_dir, data)
-    fused_bottleneck.launches = warp_affine.launches = 0          # the libreface path
+    # the libreface path
+    fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
     with tempfile.TemporaryDirectory() as tmp_dir:
         phase_libreface(dev, smi, tmp_dir)
     k1l, k2l = warp_affine.launches, fused_bottleneck.launches
+    k3_read("libreface")
     if k1l or k2l:
         raise AssertionError(f"libreface: K1/K2 launched {k1l}/{k2l} times")
     return {"warp_affine": {"app_file": k1a, "regen": k1r, "vox": k1v, "libreface": k1l},
@@ -3435,12 +3612,14 @@ def run_overlay_app(scorer, frames, rows, out_video=None) -> dict:
     try:
         eng.warmup()
         seq0 = eng._group._next_seq
-        warp_affine.launches = fused_bottleneck.launches = 0      # the run starts here
+        # the run starts here
+        warp_affine.launches = fused_bottleneck.launches = k3.bias_act.launches = 0
         t0 = time.perf_counter()
         ready, fake = run_loop(app, iter(frames), out_video=out_video,
                                on_frame=overlays.append if out_video else None)
         dt = time.perf_counter() - t0
         launches, k2 = warp_affine.launches, fused_bottleneck.launches   # ... ends here
+        k3n = k3.bias_act.launches
         batches = eng._group._next_seq - seq0
     finally:
         eng.close()
@@ -3448,7 +3627,7 @@ def run_overlay_app(scorer, frames, rows, out_video=None) -> dict:
             "overlay_ms": 1000.0 * t["overlay"] / max(1, len(overlays)),
             "scores": {int(k): [float(p) for p in v] for k, v in app.running_scores.items()},
             "ready": bool(ready), "fake": bool(fake), "k1_launches": launches, "k2_launches": k2,
-            "batches_dispatched": batches}
+            "k3_launches": k3n, "batches_dispatched": batches}
 
 
 def phase_overlay(scorer, smi: str, tmp_dir: str, onnx: str):
@@ -3469,6 +3648,7 @@ def phase_overlay(scorer, smi: str, tmp_dir: str, onnx: str):
     plain = run_overlay_app(scorer, frames, rows)
     out = os.path.join(tmp_dir, "overlay.y4m")
     ov = run_overlay_app(scorer, frames, rows, out_video=out)
+    k3_read("overlay", ov["k3_launches"])
     ref = os.path.join(tmp_dir, "overlay_ref.y4m")
     write_y4m(ref, ov["overlays"])
     got = list(read_y4m(out))
@@ -3681,20 +3861,24 @@ def phase_geo_jitter(dev, smi: str, tmp_dir: str):
     state, step_fn, _ = init_i3d_training(model, I3DTrainArgs(steps_per_epoch=1, max_epoch=1))
     mean, std = (torch.as_tensor(a, device=dev) for a in (IMAGENET_MEAN, IMAGENET_STD))
     x = (torch.from_numpy(clips).to(dev).float() - mean) / std
-    fused_bottleneck.launches = warp_affine.launches = 0          # the geo_jitter path
+    # the geo_jitter path
+    fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, m = step_fn(state, x, torch.from_numpy(ys).to(dev), SEED)
     loss = float(m["loss"])
     step_s = time.perf_counter() - t0
-    k1, k2 = warp_affine.launches, fused_bottleneck.launches
+    k1, k2, k3n = warp_affine.launches, fused_bottleneck.launches, k3_read("geo_jitter")
     r = {"phase": "geo_jitter", "card": smi, "clip": [TRAIN_T, TRAIN_S, TRAIN_S],
          "host_s_per_item_geo_1": secs[1.0], "host_s_per_item_geo_0": secs[0.0],
          "geo_share_of_item": 1.0 - secs[0.0] / secs[1.0], "batch": len(ys),
-         "step_loss": loss, "first_step_s": step_s, "k1_launches": k1, "k2_launches": k2}
+         "step_loss": loss, "first_step_s": step_s, "k1_launches": k1, "k2_launches": k2,
+         "k3_launches": k3n}
     emit(r)
     if not (np.isfinite(loss) and clips.shape == (8, TRAIN_T, TRAIN_S, TRAIN_S, 3)):
         raise AssertionError(f"geo_jitter: loss {loss}, clips {clips.shape}")
+    if k3n:
+        raise AssertionError(f"geo_jitter: K3 launched {k3n} times in a training step")
     return k1, k2
 
 
@@ -3704,10 +3888,11 @@ def phase_slice13(dev, smi: str, scorer) -> dict:
     launches = {"warp_affine": {}, "fused_bottleneck": {}}
 
     def count(name, fn):
-        warp_affine.launches = fused_bottleneck.launches = 0
+        warp_affine.launches = fused_bottleneck.launches = k3.bias_act.launches = 0
         fn()
         launches["warp_affine"][name] = warp_affine.launches
         launches["fused_bottleneck"][name] = fused_bottleneck.launches
+        k3_read(name)
         if warp_affine.launches or fused_bottleneck.launches:
             raise AssertionError(f"{name}: K1/K2 launched {warp_affine.launches}/"
                                  f"{fused_bottleneck.launches} times")
@@ -3853,17 +4038,17 @@ def phase_ftcn_serve(dev, smi: str, tmp_dir: str, ftcn_ckpt: str):
     valid = np.ones((B,), bool)
     np.asarray(scorer.score_windows(ws, boxes, lm5, scale, valid))     # warm-up
     torch.cuda.synchronize()
-    fused_bottleneck.launches = warp_affine.launches = 0                 # the serving path
+    fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0  # the serving path
     times = []
     for _ in range(FTCN_SERVE_BATCHES):
         t0 = time.perf_counter()
         p16 = np.asarray(scorer.score_windows(ws, boxes, lm5, scale, valid))
         times.append((time.perf_counter() - t0) * 1000)
-    k1, k2 = warp_affine.launches, fused_bottleneck.launches
+    k1, k2, k3n = warp_affine.launches, fused_bottleneck.launches, k3_read("ftcn_serve")
     p32 = np.asarray(scorer32.score_windows(ws, boxes, lm5, scale, valid))
     pcpu = np.asarray(cpu32.score_windows([torch.from_numpy(w) for w in host_ws], boxes, lm5,
                                           scale, valid))
-    fused_bottleneck.launches = warp_affine.launches = 0
+    fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
     try:
         ClipScorer.from_jax_checkpoint(ftcn_ckpt, device=dev)
         refused = None
@@ -3872,6 +4057,7 @@ def phase_ftcn_serve(dev, smi: str, tmp_dir: str, ftcn_ckpt: str):
     r = {"phase": "ftcn_serve", "card": smi, "model": "I3D-R50 temporal_only, stop_point 5",
          "clip": T, "crop": cfg.crop_size, "batch": B, "dtype": "bfloat16", "fused_s2": True,
          "batches": FTCN_SERVE_BATCHES, "k1_launches": k1, "k2_launches": k2,
+         "k3_launches": k3n,
          "ms_per_batch_median": float(np.median(times)), "ms_per_batch_p90": float(np.percentile(times, 90)),
          "probs_bf16": p16.tolist(), "probs_f32": p32.tolist(),
          "f32_card_vs_cpu_dp": float(np.abs(p32 - pcpu).max()),
@@ -3999,16 +4185,18 @@ def phase_slice14(dev, smi: str) -> dict:
     before each path and read just after)."""
     launches = {"warp_affine": {}, "fused_bottleneck": {}}
     with tempfile.TemporaryDirectory() as tmp_dir:
-        fused_bottleneck.launches = warp_affine.launches = 0
+        fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
         ckpt = phase_ftcn_train(dev, smi, tmp_dir)
         launches["warp_affine"]["ftcn_train"] = warp_affine.launches
         launches["fused_bottleneck"]["ftcn_train"] = fused_bottleneck.launches
+        k3_read("ftcn_train")
         k1, k2 = phase_ftcn_serve(dev, smi, tmp_dir, ckpt)
         launches["warp_affine"]["ftcn_serve"], launches["fused_bottleneck"]["ftcn_serve"] = k1, k2
-        fused_bottleneck.launches = warp_affine.launches = 0
+        fused_bottleneck.launches = warp_affine.launches = k3.bias_act.launches = 0
         phase_zoo(dev, smi, tmp_dir)
         launches["warp_affine"]["zoo"] = warp_affine.launches
         launches["fused_bottleneck"]["zoo"] = fused_bottleneck.launches
+        k3_read("zoo")
     for name in ("ftcn_train", "zoo"):
         if launches["warp_affine"][name] or launches["fused_bottleneck"][name]:
             raise AssertionError(f"{name}: K1/K2 launched on a path that has none")
@@ -4187,7 +4375,7 @@ def phase_ddp(dev, smi: str, tmp_dir: str) -> dict:
     base = ["--data", tree, "--clip_size", str(TRAIN_T), "--crop_size", str(TRAIN_S),
             *TRAIN_ARGS, "--device", str(dev)]
     runs = {}
-    warp_affine.launches = fused_bottleneck.launches = 0                   # the paths start
+    warp_affine.launches = fused_bottleneck.launches = k3.bias_act.launches = 0  # the paths start
     for name, extra in (("plain", []), ("mesh", ["--mesh"])):
         out = os.path.join(tmp_dir, f"ddp_{name}")
         t0 = time.perf_counter()
@@ -4198,6 +4386,7 @@ def phase_ddp(dev, smi: str, tmp_dir: str) -> dict:
                       "epoch_loss": [r["loss"] for r in stats if r["_type"] == "train_epoch"],
                       "val_auc": [r["value"] for r in stats if r["_type"] == "val_epoch"]}
     launches = {"warp_affine": warp_affine.launches, "fused_bottleneck": fused_bottleneck.launches}
+    k3n = k3_read("ddp")                     # the trainer's validation scores in bf16 eval
     mesh_out = os.path.join(tmp_dir, "ddp_mesh")
     t0 = time.perf_counter()
     resumed = run_i3d.main(base + ["--out", mesh_out, "--epochs", "2", "--resume"])
@@ -4284,7 +4473,8 @@ def phase_ddp(dev, smi: str, tmp_dir: str) -> dict:
                                  for d in dry]},
          "tol": {"mesh_vs_plain_epoch_loss_rel": DDP_LOSS_TOL, "world2_vs_world1": DDP_WORLD_TOL,
                  "dual_world2_vs_world1": DDP_DUAL_TOLS},
-         "k1_launches": launches["warp_affine"], "k2_launches": launches["fused_bottleneck"]}
+         "k1_launches": launches["warp_affine"], "k2_launches": launches["fused_bottleneck"],
+         "k3_launches": k3n}
     emit(r)
     if not (runs["mesh"]["steps"] == runs["plain"]["steps"] > 0
             and np.isfinite(runs["mesh"]["epoch_loss"]).all()):
@@ -4361,22 +4551,23 @@ def phase_int8(dev, smi: str) -> dict:
 
         probs = {k: run(s) for k, s in (("float", fl), ("int8", q8))}      # warm-up
         ms = {"float": [], "int8": []}
-        counts = {"float": np.zeros(3, int), "int8": np.zeros(3, int)}   # K1, K2, int8 GEMMs
+        counts = {"float": np.zeros(4, int), "int8": np.zeros(4, int)}   # K1, K2, GEMMs, K3
         for order in (("float", "int8"), ("int8", "float")):
             for k in order:
                 s = fl if k == "float" else q8
                 torch.cuda.synchronize()
-                warp_affine.launches = fused_bottleneck.launches = 0
+                warp_affine.launches = fused_bottleneck.launches = k3.bias_act.launches = 0
                 n8 = i3d.int8_conv_acc.launches
                 for _ in range(INT8_TIMED):
                     t0 = time.perf_counter()
                     run(s)
                     ms[k].append((time.perf_counter() - t0) * 1000)
                 counts[k] += (warp_affine.launches, fused_bottleneck.launches,
-                              i3d.int8_conv_acc.launches - n8)
+                              i3d.int8_conv_acc.launches - n8, k3.bias_act.launches)
         counts = {k: [int(n) for n in v] for k, v in counts.items()}
         launches["warp_affine"][f"int8_b{B}"] = counts["int8"][0]
         launches["fused_bottleneck"][f"int8_b{B}"] = counts["int8"][1]
+        k3_read(f"int8_b{B}", counts["int8"][3])
         per_b[B] = {"ms_per_batch_median": {k: float(np.median(v)) for k, v in ms.items()},
                     "ms_per_batch_p90": {k: float(np.percentile(v, 90)) for k, v in ms.items()},
                     "int8_over_float": float(np.median(ms["int8"]) / np.median(ms["float"])),
@@ -4384,6 +4575,7 @@ def phase_int8(dev, smi: str) -> dict:
                     "probs_int8": probs["int8"].tolist(),
                     "k1_launches_int8": counts["int8"][0],
                     "int8_gemms_per_batch": counts["int8"][2] / (2 * INT8_TIMED),
+                    "k3_per_batch": {k: v[3] / (2 * INT8_TIMED) for k, v in counts.items()},
                     "batches_int8": 2 * INT8_TIMED}
         del ws
 
@@ -4397,12 +4589,13 @@ def phase_int8(dev, smi: str) -> dict:
     pu = np.asarray(q8.score_windows(ws, boxes, lm5, scale, valid))
     np.asarray(fz.score_windows(ws, boxes, lm5, scale, valid))              # warm-up
     torch.cuda.synchronize()
-    warp_affine.launches = fused_bottleneck.launches = 0
+    warp_affine.launches = fused_bottleneck.launches = k3.bias_act.launches = 0
     t0 = time.perf_counter()
     pf = np.asarray(fz.score_windows(ws, boxes, lm5, scale, valid))
     fused_ms = (time.perf_counter() - t0) * 1000
     launches["warp_affine"]["int8_fused"] = warp_affine.launches
     launches["fused_bottleneck"]["int8_fused"] = fused_bottleneck.launches
+    k3_read("int8_fused")
     del fz, ws
 
     # float32 int8 probs, card vs CPU, at 8×64²
@@ -4442,6 +4635,7 @@ def phase_int8(dev, smi: str) -> dict:
     app_res = run_app_over(q8, frames, oracle_rows(scene, INT8_APP_FRAMES))
     launches["warp_affine"]["int8_app"] = app_res["k1_launches"]
     launches["fused_bottleneck"]["int8_app"] = app_res["k2_launches"]
+    k3_read("int8_app", app_res["k3_launches"])
     del frames
 
     r = {"phase": "int8", "card": smi, "model": "I3D-R50", "clip": T, "crop": cfg.crop_size,
@@ -4450,6 +4644,7 @@ def phase_int8(dev, smi: str) -> dict:
          "fused_s2_int8": {"B": 8, "ms_one_batch": fused_ms, "k1_launches":
                            launches["warp_affine"]["int8_fused"],
                            "k2_launches": launches["fused_bottleneck"]["int8_fused"],
+                           "k3_launches": k3_by_path["int8_fused"],
                            "dp_vs_unfused_int8": float(np.abs(pf - pu).max())},
          "f32_card_vs_cpu_dp": f32_dp, "f32_small": "8×64², B = 2",
          "s4_conv_acc_bit_equal": acc_equal, "s4_conv_ms": conv_ms,
@@ -4461,18 +4656,23 @@ def phase_int8(dev, smi: str) -> dict:
             raise AssertionError(f"int8 B={B}: K1 {v['k1_launches_int8']} for "
                                  f"{v['batches_int8']} batches, {v['int8_gemms_per_batch']} "
                                  "integer GEMMs a batch")
+        want3 = {"float": K3_PER_FORWARD["i3d"], "int8": K3_PER_FORWARD["int8"]}
+        if v["k3_per_batch"] != want3:
+            raise AssertionError(f"int8 B={B}: K3 {v['k3_per_batch']} a batch (want {want3})")
         p = np.array(v["probs_int8"])
         if not (np.isfinite(p).all() and v["dp_int8_vs_float"] <= INT8_DP_TOL):
             raise AssertionError(f"int8 B={B}: probs {p}, |Δp| {v['dp_int8_vs_float']}")
     if not (launches["fused_bottleneck"]["int8_fused"] == 3
-            and launches["warp_affine"]["int8_fused"] == 1):
+            and launches["warp_affine"]["int8_fused"] == 1
+            and k3_by_path["int8_fused"] == K3_PER_FORWARD["fused_s2_int8"]):
         raise AssertionError(f"int8: fused_s2 launches {launches}")
     if not f32_dp <= INT8_F32_TOL:
         raise AssertionError(f"int8: float32 card vs CPU |Δp| {f32_dp}")
     if not acc_equal:
         raise AssertionError("int8: the s4 accumulators differ from the plain version")
     if not (app_res["frames_seen"] == INT8_APP_FRAMES and app_res["k1_launches"] > 0
-            and app_res["k1_launches"] == app_res["batches_dispatched"]):
+            and app_res["k1_launches"] == app_res["batches_dispatched"]
+            and app_res["k3_launches"] == K3_PER_FORWARD["int8"] * app_res["batches_dispatched"]):
         raise AssertionError(f"int8: app {app_res}")
     return launches
 
@@ -4582,12 +4782,12 @@ def phase_slice16(dev, smi: str) -> dict:
                 scale=s._to_device(scale, torch.float32),
                 warp=warp_affine_reference).cpu().numpy()
         ms = {"rounded": [], "unrounded": []}
-        k1 = k2 = 0
+        k1 = k2 = k3n = 0
         for order in (("rounded", "unrounded"), ("unrounded", "rounded")):
             for k in order:
                 s = sc[("bf16", k == "rounded")]
                 torch.cuda.synchronize()
-                warp_affine.launches = fused_bottleneck.launches = 0
+                warp_affine.launches = fused_bottleneck.launches = k3.bias_act.launches = 0
                 for _ in range(SLICE16_TIMED):
                     t0 = time.perf_counter()
                     run(s)
@@ -4595,8 +4795,10 @@ def phase_slice16(dev, smi: str) -> dict:
                 if k == "rounded":
                     k1 += warp_affine.launches
                     k2 += fused_bottleneck.launches
+                    k3n += k3.bias_act.launches
         launches["warp_affine"][f"slice16_b{B}"] = k1
         launches["fused_bottleneck"][f"slice16_b{B}"] = k2
+        k3_read(f"slice16_b{B}", k3n)
         med = {k: float(np.median(v)) for k, v in ms.items()}
         per_b[B] = {
             "ms_per_batch_median": med,
@@ -4626,12 +4828,13 @@ def phase_slice16(dev, smi: str) -> dict:
     p32 = np.asarray(sc[("f32", True)].score_windows(ws, boxes, lm5, scale, valid))
     np.asarray(fz.score_windows(ws, boxes, lm5, scale, valid))              # warm-up
     torch.cuda.synchronize()
-    warp_affine.launches = fused_bottleneck.launches = 0
+    warp_affine.launches = fused_bottleneck.launches = k3.bias_act.launches = 0
     t0 = time.perf_counter()
     pf = np.asarray(fz.score_windows(ws, boxes, lm5, scale, valid))
     fused_ms = (time.perf_counter() - t0) * 1000
     launches["warp_affine"]["slice16_fused"] = warp_affine.launches
     launches["fused_bottleneck"]["slice16_fused"] = fused_bottleneck.launches
+    k3_read("slice16_fused")
     del fz, ws, sc
 
     # a two-class head scored on its second logit, float32, card vs CPU
@@ -4713,16 +4916,17 @@ def main() -> None:
 
     # one nvcc for each kernel source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         futs = {"warp_affine": pool.submit(timed, build_kernel),
-                "fused_bottleneck": pool.submit(timed, k2.build_kernel)}
+                "fused_bottleneck": pool.submit(timed, k2.build_kernel),
+                "bias_act": pool.submit(timed, k3.build_kernel)}
         build_s = {k: f.result() for k, f in futs.items()}
     t_kernels = time.perf_counter() - t0
     t0 = time.perf_counter()
     native = native_available()
     rec = {"phase": "build", "kernels_wall_s": t_kernels, "native_s": time.perf_counter() - t0,
            "native": native}
-    for k in ("warp_affine", "fused_bottleneck"):
+    for k in ("warp_affine", "fused_bottleneck", "bias_act"):
         info = build_info[k]
         rec.update({f"{k}_s": build_s[k], f"{k}_library": info["library"],
                     f"{k}_reused": info["reused"],
@@ -4732,6 +4936,7 @@ def main() -> None:
     k1_err, k1_timings = phase_k1(dev)
     k2_err = phase_k2_check(dev)
     k2_timings = phase_k2_time(dev)
+    k3_err, k3_timings = phase_k3(dev)
     scorer = phase_scorer(dev)
     scene = Scene((1080, 1920), n_faces=1, seed=SEED)
     # rendered before any clock starts: making data is set-up
@@ -4819,7 +5024,8 @@ def main() -> None:
          "launches_by_phase": by_phase["fused_bottleneck"],
          "max_abs_err": k2_err, "ms": per_launch["ms"], "plain_ms": per_launch["plain_ms"],
          "bound_ms": max(per_launch["bytes_ms"], per_launch["ops_ms"]), "bound_by": k2_bound_by,
-         "library_ms": None}]})
+         "library_ms": None},
+        k3_entry(k3_err, k3_timings)]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -10,7 +10,8 @@ pre-norm ViT (depth 1, 16 heads of 64, MLP 2048) → 1 logit.
 
 - The trunk computes in the model's ``dtype`` over float32 parameters, in
   NCTHW ``channels_last_3d`` tensors, with the I3D's ``Conv3dBN``
-  (``models/i3d.py``: eval BN as an affine, train BN flax's); the head in
+  (``models/i3d.py``: eval BN as an affine, folded into the convolution
+  on the card in 16 bits, train BN flax's); the head in
   float32, as JAX's.
 - The head's attention is JAX's arithmetic: the bias-free ``qkv`` Linear,
   an einsum, a softmax, the einsum with ``v`` and ``attn_out``; LayerNorm
@@ -40,13 +41,12 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..config import I3DConfig
 from ..utils.spans import span
-from .i3d import (STAGE_DEPTH, Conv3dBN, flax_dropout, flax_reset_, max_pool_3d,
-                  stage_temp_kernels)
+from .i3d import (STAGE_DEPTH, Conv3dBN, finish_bn, flax_dropout, flax_reset_, join_residual,
+                  max_pool_3d, stage_temp_kernels)
 from .vit import LN_EPS, TransformerEncoder
 
 PATCH_TYPES = ("time", "spatial", "random", "random_avg", "all")
@@ -54,7 +54,10 @@ PATCH_TYPES = ("time", "spatial", "random", "random_avg", "all")
 
 class TemporalConvBN(nn.Module):
     """Tx1x1 conv (stride 1) → BN → optional MaxPool(1,2,2) standing in for
-    a removed spatial stride (reference temporal_only_conv semantics)."""
+    a removed spatial stride (reference temporal_only_conv semantics). With
+    BN folded (``Conv3dBN.folds``) the pool takes the convolution's output
+    and BN's shift follows it, in the one pass that also applies the
+    ReLU or the residual."""
 
     def __init__(self, dim_in: int, features: int, temp_kernel: int, spatial_pool: bool,
                  zero_init_scale: bool = False, bn_eps: float = 1e-5, bn_momentum: float = 0.1,
@@ -68,12 +71,17 @@ class TemporalConvBN(nn.Module):
     # max pools standing in for a removed spatial stride, over the process's life
     stride_pools = 0
 
-    def forward(self, x, train: bool = False):
-        x = self.Conv3dBN_0(x, train)
+    def conv_bn(self, x, train: bool = False):
+        """(y, shift) as :meth:`Conv3dBN.conv_bn`, y pooled where this
+        stands in for a stride."""
+        x, shift = self.Conv3dBN_0.conv_bn(x, train)
         if self.spatial_pool:
             TemporalConvBN.stride_pools += 1
             x = max_pool_3d(x, (1, 2, 2), (1, 2, 2), (0, 0, 0))
-        return x
+        return x, shift
+
+    def forward(self, x, train: bool = False, relu: bool = False):
+        return finish_bn(*self.conv_bn(x, train), relu=relu)
 
 
 class FTCNBlock(nn.Module):
@@ -91,11 +99,10 @@ class FTCNBlock(nn.Module):
                          if dim_in != dim_out or stride != 1 else None)
 
     def forward(self, x, train: bool = False):
-        h = F.relu(self.a(x, train))
-        h = F.relu(self.b(h, train))
-        h = self.c(h, train)
-        sc = self.shortcut(x, train) if self.shortcut is not None else x
-        return F.relu(sc + h)
+        h = self.a(x, train, relu=True)
+        h = self.b(h, train, relu=True)
+        h, shift = self.c.conv_bn(h, train)
+        return join_residual(h, shift, x, self.shortcut, train)
 
 
 def _interior_indices(h: int, w: int) -> np.ndarray:
@@ -274,7 +281,7 @@ class FTCN(nn.Module):
         middle and these blocks are 1×1×1."""
         x = x.to(self.compute_dtype).permute(0, 4, 1, 2, 3)
         x = x.contiguous(memory_format=torch.channels_last_3d)
-        x = F.relu(self.s1(x, train))
+        x = self.s1(x, train, relu=True)
         x = max_pool_3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
         for name in self.block_names:
             x = getattr(self, name)(x, train)

@@ -12,7 +12,12 @@ bottleneck ``resnet_helper.py:196``; head ``head_helper.py:9``).
   model's ``dtype`` (bf16 by default in the scorer, as the JAX scorer does)
   with the head in float32.
 - Eval (``train=False``, the default): BatchNorm applies its running
-  statistics as a per-channel affine. Train (``train=True``): flax's
+  statistics as a per-channel affine. On the card in bf16 or fp16 with no
+  gradient recorded, ``Conv3dBN`` folds that affine's scale into the
+  convolution's weight and adds its shift, with the block's residual and
+  ReLU, in one pass of K3 (``ops/bias_act.py``), counted in
+  ``Conv3dBN.folded_convs``; the CPU, float32, int8 stages and training
+  keep the separate operations. Train (``train=True``): flax's
   ``nn.BatchNorm`` with ``use_running_average=False``
   (``stdd_tpu/models/i3d.py:168-175``) — each BN normalizes with the batch
   mean and the biased variance, reduced in float32 whatever the activation
@@ -69,6 +74,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import I3DConfig
+from ..ops.bias_act import bias_act
 from ..ops.bottleneck import fold_bn, fused_bottleneck
 from ..parallel.mesh import active_data_parallel, global_rand, sync_batch_stats
 
@@ -223,7 +229,15 @@ class Conv3dBN(nn.Module):
     (the final BN of a bottleneck). ``bn.momentum`` is torch's convention:
     the weight of the batch in the running statistics. ``int8``: in eval,
     the convolution is :func:`int8_conv` and the BN's output is cast back
-    to the input's dtype, as flax's BN with ``dtype`` does."""
+    to the input's dtype, as flax's BN with ``dtype`` does.
+
+    Where :meth:`folds` holds (eval on the card in 16 bits, no gradient
+    recorded, not int8), BN's scale is folded into the convolution's weight
+    and its shift is left to one K3 pass (``ops/bias_act.py``) that also
+    adds a residual and applies the ReLU: :meth:`conv_bn` hands back the
+    convolution's output and the shift still to add, :func:`finish_bn` adds
+    it. Elsewhere the two compute conv → BN (→ + residual → ReLU) as
+    before."""
 
     def __init__(self, dim_in: int, features: int, kernel: Tuple[int, int, int],
                  stride: Tuple[int, int, int] = (1, 1, 1),
@@ -236,6 +250,8 @@ class Conv3dBN(nn.Module):
         self.bn = nn.BatchNorm3d(features, eps=bn_eps, momentum=bn_momentum)
         self.zero_init_scale = zero_init_scale
         self.int8 = int8
+        self._fold_key = None
+        self._fold = None
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -249,17 +265,41 @@ class Conv3dBN(nn.Module):
         if self.zero_init_scale:
             self.bn.weight.zero_()
 
-    # convolutions run by space_to_depth_conv3d / temporal_conv3d_as_2d,
-    # over the process's life
+    # convolutions run by space_to_depth_conv3d / temporal_conv3d_as_2d, and
+    # those run with BN folded into their weight, over the process's life
     s2d_convs = 0
     temporal_2d_convs = 0
+    folded_convs = 0
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def folds(self, x: torch.Tensor, train: bool) -> bool:
+        """Whether this forward folds BN into the convolution: eval, on the
+        card in bf16 or fp16, no gradient recorded, not int8."""
+        return (not train and not self.int8 and x.is_cuda
+                and x.dtype in (torch.bfloat16, torch.float16) and not torch.is_grad_enabled())
+
+    def folded(self, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(weight · γ/√(σ²+ε) in ``dtype`` and ``channels_last_3d``, the shift
+        β − μ·γ/√(σ²+ε)), both computed by ``ops/bottleneck.py::fold_bn``
+        in float32 (float64 for a float64 module) and the shift kept so.
+        Computed once per weight load, not in every forward: the key is
+        every source tensor's address and version counter, which any
+        in-place write (``load_state_dict`` included) bumps. A module made
+        under ``torch.inference_mode`` holds inference tensors, which keep
+        no version counter: it folds afresh in every forward."""
+        bn = self.bn
+        srcs = (self.conv.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        key = None
+        if not any(t.is_inference() for t in srcs):
+            key = (dtype, srcs[0].device) + tuple((t.data_ptr(), t._version) for t in srcs)
+        if key is None or key != self._fold_key:
+            with torch.no_grad():
+                wf, shift = fold_bn(srcs[0].movedim(0, -1), *srcs[1:], bn.eps)
+                wf = wf.movedim(-1, 0).to(dtype=dtype, memory_format=torch.channels_last_3d)
+            self._fold, self._fold_key = (wf, shift), key
+        return self._fold
+
+    def _conv(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         c = self.conv
-        if self.int8 and not train:
-            y = int8_conv(x, c.weight, c.stride, c.padding)
-            return batch_norm(self.bn, y, False).to(x.dtype)
-        w = c.weight.to(dtype=x.dtype, memory_format=torch.channels_last_3d)
         # In 16 bits on the card, two shapes send cuDNN's heuristics to a
         # float32 NCDHW fallback (``indexed_f32f32``) instead of a tensor-core
         # engine: a channel count that is not a multiple of 8 (the stems' 3)
@@ -267,13 +307,60 @@ class Conv3dBN(nn.Module):
         half = x.is_cuda and x.dtype in (torch.bfloat16, torch.float16)
         if half and x.shape[1] % 8 and fits_space_to_depth(x.shape, c.stride):
             Conv3dBN.s2d_convs += 1
-            x = space_to_depth_conv3d(x, w, c.stride, c.padding)
-        elif half and fits_temporal_2d(c.kernel_size, c.stride, c.padding):
+            return space_to_depth_conv3d(x, w, c.stride, c.padding)
+        if half and fits_temporal_2d(c.kernel_size, c.stride, c.padding):
             Conv3dBN.temporal_2d_convs += 1
-            x = temporal_conv3d_as_2d(x, w, c.stride, c.padding)
-        else:
-            x = F.conv3d(x, w, None, c.stride, c.padding)
-        return batch_norm(self.bn, x, train)
+            return temporal_conv3d_as_2d(x, w, c.stride, c.padding)
+        return F.conv3d(x, w, None, c.stride, c.padding)
+
+    def conv_bn(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(y, shift): where :meth:`folds`, y is the convolution by the folded
+        weight and ``shift`` BN's shift still to add (float32 [C]); else y
+        is BN's output and ``shift`` None. :func:`finish_bn` completes
+        either."""
+        c = self.conv
+        if self.int8 and not train:
+            y = int8_conv(x, c.weight, c.stride, c.padding)
+            return batch_norm(self.bn, y, False).to(x.dtype), None
+        if self.folds(x, train):
+            Conv3dBN.folded_convs += 1
+            w, shift = self.folded(x.dtype)
+            return self._conv(x, w), shift
+        w = c.weight.to(dtype=x.dtype, memory_format=torch.channels_last_3d)
+        return batch_norm(self.bn, self._conv(x, w), train), None
+
+    def forward(self, x: torch.Tensor, train: bool = False, relu: bool = False) -> torch.Tensor:
+        """conv → BN (→ ReLU)."""
+        return finish_bn(*self.conv_bn(x, train), relu=relu)
+
+
+def finish_bn(y: torch.Tensor, shift: Optional[torch.Tensor], relu: bool = False,
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """What follows :meth:`Conv3dBN.conv_bn` (and any max pool after it: the
+    max commutes with a per-channel constant): with a ``shift`` (BN folded),
+    one K3 pass ``act(y + shift (+ residual))`` in place over ``y``;
+    without, ``residual + y`` and the ReLU as separate operations."""
+    if shift is None:
+        y = y if residual is None else residual + y
+        return F.relu(y) if relu else y
+    return bias_act(y, shift, residual, relu)
+
+
+def join_residual(y: torch.Tensor, shift: Optional[torch.Tensor], x: torch.Tensor,
+                  shortcut: Optional[nn.Module], train: bool) -> torch.Tensor:
+    """``relu(shortcut(x) + BN(y))`` of a residual block from its last
+    convolution's :meth:`Conv3dBN.conv_bn` (``y``, ``shift``) and the
+    shortcut (the identity where None; else a module with ``conv_bn``). A
+    projection folds as the last convolution does (the same input dtype and
+    device, mode and ``int8``), so its shift joins ``shift`` and its output
+    needs no pass of its own."""
+    sc = x
+    if shortcut is not None:
+        sc, sc_shift = shortcut.conv_bn(x, train)
+        if sc_shift is not None:
+            shift = shift + sc_shift
+    return finish_bn(y, shift, relu=True, residual=sc)
 
 
 def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor, train: bool
@@ -340,7 +427,7 @@ class VideoStem(nn.Module):
                                       (t // 2, 3, 3), bn_eps=bn_eps, bn_momentum=bn_momentum)
 
     def forward(self, x, train: bool = False):
-        x = F.relu(self.pathway0_stem(x, train))
+        x = self.pathway0_stem(x, train, relu=True)
         return max_pool_3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
 
 
@@ -365,10 +452,12 @@ class Bottleneck(nn.Module):
         self.c = Conv3dBN(dim_inner, dim_out, (1, 1, 1), (1, 1, 1), (0, 0, 0),
                           zero_init_scale=zero_init_final_bn, **bn)
 
-    def forward(self, x, train: bool = False):
-        x = F.relu(self.a(x, train))
-        x = F.relu(self.b(x, train))
-        return self.c(x, train)
+    def forward(self, x, train: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(c's output, its BN shift still to add or None), as
+        :meth:`Conv3dBN.conv_bn`."""
+        x = self.a(x, train, relu=True)
+        x = self.b(x, train, relu=True)
+        return self.c.conv_bn(x, train)
 
 
 class ResBlock(nn.Module):
@@ -396,32 +485,23 @@ class ResBlock(nn.Module):
         self._fold = None
 
     def folded_weights(self, dtype: torch.dtype):
-        """K2's operands (wa, ba, wb, bb, wc, bc, ws, bs): BN folded into
-        each convolution in float32, kernels in the JAX layout cast to
-        ``dtype``. Computed once per weight load, not in every forward: the
-        key is every source tensor's address and version counter, which any
-        in-place write (``load_state_dict`` included) bumps."""
+        """K2's operands (wa, ba, wb, bb, wc, bc, ws, bs): each convolution's
+        :meth:`Conv3dBN.folded` weight re-laid in the JAX layout, and its
+        shift. The layout copies are made again only when a fold is."""
         br = self.branch2
         # each convolution and the leading (kernel) axes of its K2 layout
         convs = [(br.a, (self.tk,)), (br.b, (3, 3)), (br.c, ())]
         if self.shortcut is not None:
             convs.append((self.shortcut, ()))
-        srcs = [t for m, _ in convs for t in (m.conv.weight, m.bn.weight, m.bn.bias,
-                                              m.bn.running_mean, m.bn.running_var)]
-        key = (dtype, srcs[0].device) + tuple((t.data_ptr(), t._version) for t in srcs)
-        if key != self._fold_key:
+        folds = [m.folded(dtype) for m, _ in convs]
+        if self._fold_key is None or any(a is not b for a, b in zip(self._fold_key, folds)):
             out = []
-            with torch.no_grad():
-                for m, lead in convs:
-                    w = m.conv.weight                      # [Cout, Cin, kt, kh, kw]
-                    w = w.permute(2, 3, 4, 1, 0).reshape(lead + (w.shape[1], w.shape[0]))
-                    bn = m.bn
-                    wf, bf = fold_bn(w, bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                                     bn.eps)
-                    out += [wf.to(dtype), bf]
+            for (wf, shift), (_, lead) in zip(folds, convs):       # wf [Cout, Cin, kt, kh, kw]
+                wf = wf.permute(2, 3, 4, 1, 0).reshape(lead + (wf.shape[1], wf.shape[0]))
+                out += [wf.contiguous(), shift]
             if self.shortcut is None:
                 out += [None, None]
-            self._fold, self._fold_key = tuple(out), key
+            self._fold, self._fold_key = tuple(out), folds
         return self._fold
 
     def forward(self, x, bottleneck=fused_bottleneck, train: bool = False):
@@ -429,9 +509,8 @@ class ResBlock(nn.Module):
         (its plain version can stand in to hold the kernel to it)."""
         if self.fused_eval and not train:
             return bottleneck(x, *self.folded_weights(x.dtype), tk=self.tk)
-        br = self.branch2(x, train)                 # branch first, as JAX runs it
-        sc = self.shortcut(x, train) if self.shortcut is not None else x
-        return F.relu(sc + br)
+        br, shift = self.branch2(x, train)          # branch first, as JAX runs it
+        return join_residual(br, shift, x, self.shortcut, train)
 
 
 def stage_temp_kernels(basis: Sequence[int], num_blocks: int, num_temp: int) -> Tuple[int, ...]:

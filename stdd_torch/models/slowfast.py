@@ -20,7 +20,6 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..config import I3DConfig
@@ -45,7 +44,7 @@ class FuseFastToSlow(nn.Module):
                                  (kernel // 2, 0, 0), bn_eps=bn_eps, bn_momentum=bn_momentum)
 
     def forward(self, slow, fast, train: bool = False):
-        fuse = F.relu(self.conv_f2s(fast, train))
+        fuse = self.conv_f2s(fast, train, relu=True)
         return torch.cat([slow, fuse], dim=1), fast
 
 

@@ -49,10 +49,12 @@ KERNELS = {torch.bfloat16: "fused_bottleneck_bf16_launch",
 def fold_bn(w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
             var: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fold eval BatchNorm into a convolution whose output channels are the
-    last axis of ``w``: ``conv(x, w') + b' == BN(conv(x, w))``, in float32
+    last axis of ``w``: ``conv(x, w') + b' == BN(conv(x, w))``, in float32,
+    or float64 for a float64 ``w``
     (``stdd_tpu/ops/bottleneck_pallas.py::fold_bn``)."""
-    inv = scale.float() * torch.rsqrt(var.float() + eps)
-    return w.float() * inv, bias.float() - mean.float() * inv
+    dt = torch.promote_types(w.dtype, torch.float32)
+    inv = scale.to(dt) * torch.rsqrt(var.to(dt) + eps)
+    return w.to(dt) * inv, bias.to(dt) - mean.to(dt) * inv
 
 
 def _conv_weight(w: torch.Tensor, kernel: Tuple[int, int, int]) -> torch.Tensor:

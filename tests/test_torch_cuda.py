@@ -10,7 +10,10 @@ forward and train step on the card against the CPU, the int8 convolutions
 (the int32 GEMM on the card against its plain version, the int8 scorer
 against the CPU's) and a data-parallel step on the card (world 1 over NCCL,
 world 2 over gloo carrying CUDA tensors) against the single-process step,
-and the bf16 stem and temporal convolutions re-laid for the tensor cores.
+the bf16 stem and temporal convolutions re-laid for the tensor cores, and K3
+(BN's shift, the residual and ReLU in one pass) against its plain version
+with the bf16 forwards that fold BN into the convolutions against the
+unfused ones.
 
 Every test here needs a card: each is marked ``cuda`` and skips with the
 reason "no CUDA device" where there is none. The file imports no JAX, so on
@@ -723,3 +726,180 @@ def test_relaid_convolutions_run_on_the_tensor_cores(cuda):
     assert (Conv3dBN.s2d_convs - n0[0], Conv3dBN.temporal_2d_convs - n0[1]) == (1, n_temporal)
     kernels = [k.name for e in prof.events() for k in e.kernels]
     assert kernels and not [k for k in kernels if "indexed_f32f32" in k or "nhwcToNchw" in k]
+
+
+# K3 (ops/bias_act.py): (y shape [B, C, T, H, W], residual, relu); the I3D's
+# and FTCN-TT's passes at score_dense's batch of 8, and ragged ones
+K3_CASES = {
+    "i3d_stem": ((8, 64, 32, 112, 112), False, True),
+    "s2_last": ((8, 256, 32, 56, 56), True, True),
+    "s5_last": ((8, 2048, 16, 7, 7), True, True),
+    "ftcn_s4_shortcut": ((8, 1024, 16, 14, 14), False, False),
+    "ragged_c24": ((3, 24, 5, 7, 9), True, True),
+    "ragged_c8_no_relu": ((1, 8, 1, 3, 5), True, False),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("case", list(K3_CASES), ids=list(K3_CASES))
+def test_k3_equals_its_plain_version_bit_for_bit(cuda, case, dtype):
+    from stdd_torch.ops.bias_act import bias_act, bias_act_reference
+
+    shape, residual, relu = K3_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    y = (torch.randn(shape, generator=g, device=cuda) * 3).to(dtype)
+    y = y.contiguous(memory_format=torch.channels_last_3d)
+    b = torch.randn(shape[1], generator=g, device=cuda)
+    r = torch.randn(shape, generator=g, device=cuda).to(dtype) if residual else None
+    if r is not None:
+        r = r.contiguous(memory_format=torch.channels_last_3d)
+    want = bias_act_reference(y.clone(), b, r, relu)
+    n0 = bias_act.launches
+    got = bias_act(y, b, r, relu)
+    torch.cuda.synchronize()
+    assert got is y and bias_act.launches == n0 + 1
+    assert torch.equal(got, want)
+
+
+def test_k3_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from stdd_torch.ops.bias_act import bias_act
+
+    cl = torch.channels_last_3d
+    y = torch.zeros(2, 16, 3, 4, 4, dtype=torch.bfloat16, device=cuda).contiguous(memory_format=cl)
+    b = torch.zeros(16, device=cuda)
+    cases = [
+        (y.float(), b, None),                                      # float32 y
+        (y.contiguous(), b, None),                                 # C not innermost
+        (torch.zeros(2, 12, 3, 4, 4, dtype=torch.bfloat16, device=cuda)
+         .contiguous(memory_format=cl), torch.zeros(12, device=cuda), None),   # C % 8
+        (y, b.double(), None),                                     # float64 bias
+        (y, b, y.half()),                                          # residual's dtype
+        (y, b, torch.zeros(2, 16, 3, 4, 5, dtype=torch.bfloat16, device=cuda)),  # shape
+        (y, b, y.contiguous()),                                    # residual's layout
+        (y, b, y),                                                 # overlapping y
+        (y, b.cpu(), None),                                        # two devices
+    ]
+    for yy, bb, rr in cases:
+        with pytest.raises(ValueError):
+            bias_act(yy, bb, rr, True)
+
+
+def _randomized(model, seed: int):
+    """Random BN statistics and scales, so no residual branch is dead; each
+    block's last BN small, so activations keep their scale."""
+    from stdd_torch.models.i3d import Conv3dBN
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, Conv3dBN):
+                n = m.bn.num_features
+                lo, hi = (0.1, 0.3) if name.endswith(("branch2.c", ".c.Conv3dBN_0")) else (0.7, 1.3)
+                m.bn.weight.copy_(torch.empty(n).uniform_(lo, hi, generator=g))
+                m.bn.bias.copy_(torch.randn(n, generator=g) * 0.1)
+                m.bn.running_mean.copy_(torch.randn(n, generator=g) * 0.1)
+                m.bn.running_var.copy_(torch.empty(n).uniform_(0.7, 1.3, generator=g))
+    return model
+
+
+def _fold_forward(model, x, folded: bool):
+    """The model's eval forward on the card, with BN folded (no gradient
+    recorded: ``Conv3dBN.folds``) or as before (a gradient recorded); the
+    output, and the folded convolutions and K3 launches it made."""
+    from stdd_torch.models.i3d import Conv3dBN
+    from stdd_torch.ops.bias_act import bias_act
+
+    n0, k0 = Conv3dBN.folded_convs, bias_act.launches
+    with torch.set_grad_enabled(not folded):
+        out = model(x)
+    out = (out[0] if isinstance(out, tuple) else out).detach().float()
+    torch.cuda.synchronize()
+    return out, Conv3dBN.folded_convs - n0, bias_act.launches - k0
+
+
+# arch: the folded convolutions and K3 launches of one forward
+FOLD_ARCHS = {"i3d_ori": (53, 49), "ftcn_tt": (43, 40)}
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("arch", list(FOLD_ARCHS))
+def test_folded_bf16_forward_agrees_with_the_unfused_one(cuda, arch):
+    """The whole bf16 eval forward (16 logits a clip), BN folded, against
+    the same forward unfused and the float32 forward: within 5% (relative
+    L2) of the unfused logits, and no farther from float32's than the
+    unfused ones are, with half a percent to spare (the fold rounds once
+    where the unfused path rounds four or five times); the counters of one
+    forward: 53 and 49 for the I3D-R50, 43 and 40 for FTCN-TT."""
+    from stdd_torch.runtime.classifier import arch_config, build_model
+
+    cfg = arch_config(arch, I3DConfig(num_frames=16, crop_size=64, num_classes=16))
+    model = _randomized(build_model(arch, cfg), 6).to(cuda).eval()
+    x = torch.randn(6, 16, 64, 64, 3, generator=torch.Generator().manual_seed(7)).to(cuda)
+    f32, _, _ = _fold_forward(model, x, folded=True)            # float32: nothing folds
+    model.compute_dtype = torch.bfloat16
+    folded, n_conv, n_k3 = _fold_forward(model, x, folded=True)
+    unfused, n_conv0, n_k30 = _fold_forward(model, x, folded=False)
+    assert (n_conv, n_k3) == FOLD_ARCHS[arch] and (n_conv0, n_k30) == (0, 0)
+    gaps = dict(folded_unfused=_rel(folded, unfused), folded_f32=_rel(folded, f32),
+                unfused_f32=_rel(unfused, f32))
+    assert gaps["folded_unfused"] <= 0.05, gaps
+    assert gaps["folded_f32"] <= gaps["unfused_f32"] + 0.005, gaps
+
+
+def test_fused_s2_int8_and_training_launch_no_k3_of_their_own(cuda):
+    """``fused_s2``'s K2 blocks, the int8 stages and a training step fold
+    nothing: the bf16 I3D with ``fused_s2`` folds the stem and s3-s5 only
+    (53 − 10 convolutions, 49 − 9 passes); the bf16 int8 scorer (s3-s5)
+    the stem and s2 only (11, 10); the float32 int8 scorer and a bf16
+    training step nothing."""
+    from stdd_torch.models.i3d import I3D, Conv3dBN
+    from stdd_torch.ops.bias_act import bias_act
+
+    x = torch.randn(2, 8, 64, 64, 3, generator=torch.Generator().manual_seed(8)).to(cuda)
+
+    def counts(fn):
+        n0, k0 = Conv3dBN.folded_convs, bias_act.launches
+        fn()
+        torch.cuda.synchronize()
+        return Conv3dBN.folded_convs - n0, bias_act.launches - k0
+
+    fused = I3D(I3DConfig(num_frames=8, crop_size=64, fused_s2=True), torch.bfloat16)
+    fused = _randomized(fused, 9).to(cuda).eval()
+    with torch.inference_mode():
+        assert counts(lambda: fused(x)) == (43, 40)
+    for dtype, want in ((torch.bfloat16, (11, 10)), (torch.float32, (0, 0))):
+        s = ClipScorer.random_init(CFG, seed=1, dtype=dtype, device=cuda, int8=True)
+        with torch.inference_mode():
+            assert counts(lambda: s.model(x)) == want
+    model = I3D(CFG, torch.bfloat16).to(cuda).train()
+    gen = torch.Generator(device=cuda).manual_seed(12)
+
+    def step():
+        model(x, train=True, generator=gen).float().sum().backward()
+
+    assert counts(step) == (0, 0)
+
+
+@pytest.mark.parametrize("name", ["slowfast", "resunet"])
+def test_slowfast_and_unet3d_fold_on_the_card(cuda, name):
+    """The other users of ``Conv3dBN`` (stems, stages and SlowFast's fusion)
+    fold too: their bf16 eval forward (SlowFast's 16 logits a clip, the
+    ResUNet's masks), folded, within 5% (relative L2) of the unfused one and
+    no farther from the float32 forward, with half a percent to spare."""
+    from stdd_torch.models import build_model
+
+    cfg = I3DConfig(num_frames=8, crop_size=64, num_classes=16)
+    model = _randomized(build_model(name, cfg=cfg), 10).to(cuda).eval()
+    x = torch.randn(2, 8, 64, 64, 3, generator=torch.Generator().manual_seed(11)).to(cuda)
+    f32, _, _ = _fold_forward(model, x, folded=True)
+    model.compute_dtype = torch.bfloat16
+    folded, n_conv, n_k3 = _fold_forward(model, x, folded=True)
+    unfused, _, _ = _fold_forward(model, x, folded=False)
+    assert n_conv > 0 and n_k3 > 0
+    gaps = dict(folded_unfused=_rel(folded, unfused), folded_f32=_rel(folded, f32),
+                unfused_f32=_rel(unfused, f32))
+    assert gaps["folded_unfused"] <= 0.05, gaps
+    assert gaps["folded_f32"] <= gaps["unfused_f32"] + 0.005, gaps
